@@ -1,8 +1,9 @@
 """Typed configuration for the PyTorch port (L0).
 
-A copy of the configuration families the NMPC solve needs, with the same
-field names and defaults as `dyobav_tpu.configs`, so the reference YAML
-files and the JAX package's `to_dict()` output load unchanged.  The port
+A copy of the configuration families the NMPC solve and the batched
+simulation need, with the same field names and defaults as
+`dyobav_tpu.configs`, so the reference YAML files and the JAX package's
+`to_dict()` output load unchanged.  The port
 keeps its own copy rather than importing the JAX package's module.
 `yaml` is imported only by the functions that read or write YAML.
 """
@@ -48,6 +49,25 @@ class _YamlConfig:
 
         with open(yaml_path, "w") as f:
             yaml.safe_dump(self.to_dict(), f, sort_keys=False)
+
+
+@dataclass(frozen=True)
+class WarehouseSimConfiguration(_YamlConfig):
+    """Scene/simulation wiring (ref `configs.py:61-83`)."""
+
+    scene: str = "warehouse"
+    map_dir: str = "warehouse_sim_original"
+    map_file: str = "mymap.pgm"
+    graph_file: str = "mygraph.json"
+    mmp_cfg: str = "wsd_1t20_test.yaml"
+    mpc_cfg: str = "mpc_fast.yaml"
+    dwa_cfg: str = "dwa_test.yaml"
+    sim_width: int = 330
+    sim_height: int = 293
+    scale2nn: float = 1.0
+    scale2real: float = 0.1
+    image_axis: bool = False
+    corner_coords: List[float] = field(default_factory=lambda: [-15.0, -15.0])
 
 
 @dataclass(frozen=True)

@@ -1,11 +1,13 @@
-"""Carry the NMPC state across from the JAX package.
+"""Carry the NMPC and simulation state across from the JAX package.
 
-The batched solve has no learned weights: what crosses is the structured
-parameter set, the configurations and the warm start, each as plain numpy
-data or plain dicts, so this module needs neither JAX nor the JAX package.
+The batched solve and simulation have no learned weights: what crosses is
+the structured parameter set, the configurations, the warm start and the
+scenario tensors, each as plain numpy data or plain dicts, so this module
+needs neither JAX nor the JAX package.
 
     params_from_numpy(p_jax_as_numpy, device)  -> ops.params.MpcParams
     config_from_dict(SolverConfiguration, d)   -> configs.SolverConfiguration
+    scenario_from_numpy(sc_jax_as_numpy, device) -> sim.batch.Scenario
 """
 from __future__ import annotations
 
@@ -59,3 +61,16 @@ def config_from_dict(kind: type, d: Mapping[str, Any]):
             kwargs[k] = tuple(tuple(s) if isinstance(s, (list, tuple)) else s
                               for s in v)
     return kind(**kwargs)
+
+
+def scenario_from_numpy(sc: Any, device=None):
+    """A `sim.batch.Scenario` of the JAX package (single or batched), its
+    fields as numpy arrays or anything `np.asarray` takes, or a mapping of
+    them -> the port's Scenario as tensors on `device` (None: the CPU):
+    floating fields float32, integer fields int64."""
+    from .sim.batch import Scenario, scenario_to_device
+
+    get = sc.get if isinstance(sc, Mapping) else (lambda k: getattr(sc, k))
+    return scenario_to_device(
+        Scenario(*[np.asarray(get(name)) for name in Scenario._fields]),
+        device or "cpu")

@@ -60,6 +60,104 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def profile_configuration(scfg: SolverConfiguration,
+                          prof) -> SolverConfiguration:
+    """`scfg` at the budget of a stage profile (inner, outer, later,
+    substeps[, penalty]), with no cold profile of its own."""
+    prof = tuple(prof)
+    ci, co, cl, cs = prof[:4]
+    pen = prof[4] if len(prof) > 4 else 10.0
+    return dataclasses.replace(
+        scfg, max_inner_iters=ci, max_outer_iters=co, inner_iters_later=cl,
+        newton_substeps=cs, initial_penalty=pen, cold_profile=None)
+
+
+def escalation_ladder(scfg: SolverConfiguration):
+    """(stage profiles, slots): the configured ladder, or the cold profile
+    followed by the strong budget; slots(B) gives each stage's slot count
+    K = max(B // divisor, min(B, 16), 1), later stages reusing the last
+    divisor."""
+    ladder = (list(tuple(p) for p in scfg.escalation_ladder)
+              if scfg.escalation_ladder
+              else [tuple(scfg.cold_profile), (30, 10, 10, 1, 10.0)])
+    divisors = tuple(scfg.escalation_slots)
+    if len(divisors) < len(ladder):
+        divisors = divisors + (divisors[-1],) * (len(ladder) - len(divisors))
+    return ladder, lambda B: [max(B // d, min(B, 16), 1) for d in divisors]
+
+
+def any_lane(mask: torch.Tensor) -> bool:
+    """True if any lane of `mask` is set.  This reads one bool back to the
+    host: the device-to-host sync that takes the place of the JAX package's
+    `lax.cond(jnp.any(...))`.  `any_lane.syncs` counts them."""
+    any_lane.syncs += 1
+    return bool(torch.any(mask))
+
+
+any_lane.syncs = 0
+
+
+def gather_slots(mask: torch.Tensor, K: int):
+    """Static-size gather of the first K set lanes of `mask` in lane order,
+    without a host sync (`jnp.nonzero(mask, size=K, fill_value=0)`).
+
+    Returns (idx (K,), slot (B,), in_slot (B,)): slot k re-solves lane
+    idx[k]; each set lane's slot is its rank among the set lanes; lanes
+    past K and unset lanes are not in a slot, and unfilled slots hold
+    lane 0.  `new[slot]` then reads every lane's slot result back."""
+    B = mask.shape[0]
+    rank = torch.cumsum(mask.to(torch.long), 0) - 1
+    in_slot = mask & (rank < K)
+    target = torch.where(in_slot, rank, torch.full_like(rank, K))
+    idx = torch.zeros(K + 1, dtype=torch.long, device=mask.device)
+    idx.scatter_(0, target, torch.arange(B, device=mask.device))
+    return idx[:K], torch.clamp(rank, 0, K - 1), in_slot
+
+
+def merge_slots(take: torch.Tensor, slot: torch.Tensor, old, new):
+    """Lane b takes `new[slot[b]]` where `take[b]`, else keeps `old[b]`;
+    `old` and `new` are NamedTuples of (B, ...) and (K, ...) tensors."""
+    B = take.shape[0]
+
+    def merge(o, n):
+        return torch.where(take.reshape((B,) + (1,) * (n.ndim - 1)),
+                           n[slot], o)
+
+    return type(old)(*[merge(o, n) for o, n in zip(old, new)])
+
+
+def escalate_tail(sol, runs, slots, res_tol, ok_of):
+    """The escalation ladder shared by `solve_batch_escalated` and the
+    batched simulation's `solve_batch`.
+
+    sol: a NamedTuple of (B, ...) results with `cost` and `residual`;
+    ok_of(sol) gives its (B,) convergence flag.  Each stage gathers the
+    lanes that failed (or sit in the residual band above `res_tol`) into
+    K = slots[i] static slots, `runs[i](idx, sol)` re-solves them, and a
+    lane takes its re-solve where that converged -- a band lane (already
+    ok) only on a clear cost gain, or on a residual gain that does not
+    regress cost.  A batch with no such lane skips the stage: one host
+    sync per stage."""
+    for run, K in zip(runs, slots):
+        ok = ok_of(sol)
+        fail = torch.logical_not(ok)
+        if res_tol is not None:
+            fail = fail | (sol.residual > res_tol)
+        if not any_lane(fail):
+            continue
+        idx, slot, in_slot = gather_slots(fail, K)
+        deep = run(idx, sol)
+        cost_eps = 1e-6 * (1.0 + torch.abs(sol.cost))
+        cost_gain = deep.cost[slot] <= sol.cost - 1e3 * cost_eps
+        band_better = cost_gain | (
+            (deep.residual[slot] <= sol.residual)
+            & (deep.cost[slot] <= sol.cost + cost_eps))
+        take = in_slot & ok_of(deep)[slot] & (
+            torch.logical_not(ok) | band_better)
+        sol = merge_slots(take, slot, sol, deep)
+    return sol
+
+
 def build_mpc_solver(
     cfg: MpcConfiguration,
     robot: CircularRobotSpecification,
@@ -168,78 +266,23 @@ def _build_mpc_solver_uncached(cfg, robot, solver_cfg, dtype,
     # merged back where the re-solve converged (cost-gated for band lanes).
     solve_batch_escalated = None
     if scfg.cold_profile:
-
-        def make_stage(prof):
-            ci, co, cl, cs = tuple(prof)[:4]
-            pen = prof[4] if len(tuple(prof)) > 4 else 10.0
-            return make_batch_solve(dataclasses.replace(
-                scfg, max_inner_iters=ci, max_outer_iters=co,
-                inner_iters_later=cl, newton_substeps=cs,
-                initial_penalty=pen, cold_profile=None))
-
-        ladder = (list(tuple(p) for p in scfg.escalation_ladder)
-                  if scfg.escalation_ladder
-                  else [tuple(scfg.cold_profile), (30, 10, 10, 1, 10.0)])
+        ladder, slots = escalation_ladder(scfg)
         # Optional 6th profile element: from_iterate (continue from the
         # failing lane's returned iterate instead of its original guess).
-        stages = [make_stage(p[:5]) for p in ladder]
+        stages = [make_batch_solve(profile_configuration(scfg, p[:5]))
+                  for p in ladder]
         from_iterate = [bool(p[5]) if len(p) > 5 else False for p in ladder]
-        divisors = tuple(scfg.escalation_slots)
-        if len(divisors) < len(stages):     # pad: later stages reuse last
-            divisors = divisors + (divisors[-1],) * (len(stages)
-                                                     - len(divisors))
         res_tol = scfg.escalation_residual_tol
-
-        def needs_escalation(sol: MpcSolve) -> torch.Tensor:
-            fail = torch.logical_not(sol.exit_ok)
-            if res_tol is not None:
-                fail = fail | (sol.residual > res_tol)
-            return fail
-
-        def run_stage(stage, K, Z, U0, sol, cont: bool) -> MpcSolve:
-            B = Z.shape[0]
-            fail = needs_escalation(sol)
-            # Static-size gather of the first K failing lanes in lane order
-            # (jnp.nonzero(fail, size=K, fill_value=0)): each failing lane's
-            # slot is its rank; lanes past K and passing lanes write a
-            # discarded slot K, and unfilled slots re-solve lane 0.
-            rank = torch.cumsum(fail.to(torch.long), 0) - 1        # (B,)
-            in_slot = fail & (rank < K)
-            target = torch.where(in_slot, rank, torch.full_like(rank, K))
-            idx = torch.zeros(K + 1, dtype=torch.long, device=Z.device)
-            idx.scatter_(0, target, torch.arange(B, device=Z.device))
-            idx = idx[:K]
-            u_start = sol.u[idx] if cont else U0[idx]
-            deep = stage(Z[idx], u_start)
-            # Gather-only merge: lane b reads slot rank(b).  Band lanes
-            # (already "ok") take the re-solve on a clear cost gain, or on a
-            # residual gain that does not regress cost.
-            slot = torch.clamp(rank, 0, K - 1)
-            cost_eps = 1e-6 * (1.0 + torch.abs(sol.cost))
-            cost_gain = deep.cost[slot] <= sol.cost - 1e3 * cost_eps
-            band_better = cost_gain | (
-                (deep.residual[slot] <= sol.residual)
-                & (deep.cost[slot] <= sol.cost + cost_eps))
-            take = in_slot & deep.exit_ok[slot] & (
-                torch.logical_not(sol.exit_ok) | band_better)
-
-            def merge(old, new):
-                mask = take.reshape((B,) + (1,) * (new.ndim - 1))
-                return torch.where(mask, new[slot], old)
-
-            return MpcSolve(*[merge(o, n) for o, n in zip(sol, deep)])
 
         def solve_batch_escalated(Z, U0) -> MpcSolve:
             Z, U0 = as_input(Z), as_input(U0)
-            B = Z.shape[0]
             sol = solve_batch(Z, U0)
-            for stage, div, cont in zip(stages, divisors, from_iterate):
-                K = max(B // div, min(B, 16), 1)
-                # A batch whose lanes all converged skips the stage.  The
-                # test reads one bool back to the host: one sync per stage.
-                if bool(torch.any(needs_escalation(sol))):
-                    sol = run_stage(stage, K, Z, U0, sol, cont)
-            return sol
+            runs = [
+                lambda idx, cur, stage=stage, cont=cont: stage(
+                    Z[idx], cur.u[idx] if cont else U0[idx])
+                for stage, cont in zip(stages, from_iterate)]
+            return escalate_tail(sol, runs, slots(Z.shape[0]), res_tol,
+                                 ok_of=lambda r: r.exit_ok)
 
     return MpcSolverBundle(
         solve=solve,

@@ -25,6 +25,47 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
+def profiled(timed_fn, cuda: bool, n_top: int, host: bool = True):
+    """Run `timed_fn()` (which returns its own wall seconds, taken around a
+    device synchronize) under `torch.profiler`; returns (those seconds,
+    {device_kernel_s, device_events, kernel_launches, aten_calls,
+    top_device_ms, top_host_ms}).  host=False traces the device only: the
+    profiler keeps every event in memory, and a run of millions of
+    operators does not fit with the host's events (the host-side counts
+    and rows are then empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = ([ProfilerActivity.CPU] if host or not cuda else []) + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        seconds = timed_fn()
+    ev = prof.key_averages()
+    # Device time is summed over the device's own events (kernels, memcpy,
+    # memset) only: an operator's self device time is the time of the
+    # kernels it launched, which appear again as events of their own.
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in ev
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                "cuLaunchKernel", "cuLaunchKernelEx"))
+    aten_calls = sum(e.count for e in ev if e.key.startswith("aten::"))
+
+    def top(events, attr):
+        rows = sorted(events, key=lambda e: getattr(e, attr), reverse=True)
+        return [[e.key[:60], e.count, round(getattr(e, attr) / 1e3, 3)]
+                for e in rows[:n_top] if getattr(e, attr) > 0]
+
+    return seconds, {
+        "device_kernel_s": device_us / 1e6,
+        "device_events": sum(e.count for e in kernels),
+        "kernel_launches": launches,
+        "aten_calls": aten_calls,
+        "top_device_ms": top(kernels, "self_device_time_total"),
+        "top_host_ms": top(ev, "self_cpu_time_total"),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=2048)
@@ -34,8 +75,6 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import card_line, make_problems
     from dyobav_tpu_torch.configs import (CircularRobotSpecification,
@@ -74,24 +113,9 @@ def main() -> int:
     esc_s, esc = wall(bundle.solve_batch_escalated)
     warm_s, _ = wall(bundle.solve_batch)
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
-        prof_s, _ = wall(bundle.solve_batch)
-    ev = prof.key_averages()
-    # Device time is summed over the device's own events (kernels, memcpy,
-    # memset) only: an operator's self device time is the time of the
-    # kernels it launched, which appear again as events of their own.
-    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    launches = sum(e.count for e in ev
-                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                                "cuLaunchKernel", "cuLaunchKernelEx"))
-    aten_calls = sum(e.count for e in ev if e.key.startswith("aten::"))
-
-    def top(events, attr):
-        rows = sorted(events, key=lambda e: getattr(e, attr), reverse=True)
-        return [[e.key[:60], e.count, round(getattr(e, attr) / 1e3, 3)]
-                for e in rows[:args.top] if getattr(e, attr) > 0]
+    prof_s, stats = profiled(lambda: wall(bundle.solve_batch)[0], cuda,
+                             args.top)
+    device_s = stats["device_kernel_s"]
 
     out = {
         "card": card_line() if cuda else "cpu",
@@ -100,17 +124,12 @@ def main() -> int:
         "escalated_s": esc_s,
         "warm_stage_s": warm_s,
         "profiled_warm_stage_s": prof_s,
-        "device_kernel_s": device_us / 1e6,
         # Kernel time against the profiled and the unprofiled wall time:
         # the profiler slows the host, not the kernels.
-        "device_idle_share": (1.0 - device_us / 1e6 / prof_s) if cuda
-        else None,
-        "device_idle_share_unprofiled": (1.0 - device_us / 1e6 / warm_s)
+        "device_idle_share": (1.0 - device_s / prof_s) if cuda else None,
+        "device_idle_share_unprofiled": (1.0 - device_s / warm_s)
         if cuda else None,
-        "kernel_launches": launches,
-        "aten_calls": aten_calls,
-        "top_device_ms": top(kernels, "self_device_time_total"),
-        "top_host_ms": top(ev, "self_cpu_time_total"),
+        **stats,
     }
     print(json.dumps(out))
     return 0

@@ -23,6 +23,10 @@ from dyobav_tpu_torch.ops import costs as tcosts
 from dyobav_tpu_torch.ops import params as tparams
 from dyobav_tpu_torch.ops.newton import make_structured_hessian as thessian
 
+# One intra-op thread: the solver's operators are tiny at these sizes, and
+# the suite's parallel workers would otherwise oversubscribe the cores.
+torch.set_num_threads(1)
+
 JCFG, JROBOT = jcfg.MpcConfiguration(), jcfg.CircularRobotSpecification()
 CFG, ROBOT = tcfg.MpcConfiguration(), tcfg.CircularRobotSpecification()
 N, NS, NU = CFG.N_hor, CFG.ns, CFG.nu

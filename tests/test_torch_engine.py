@@ -27,6 +27,10 @@ from dyobav_tpu_torch import configs as tcfg
 from dyobav_tpu_torch.convert import config_from_dict
 from dyobav_tpu_torch.ops import engine as tengine
 
+# One intra-op thread: the solver's operators are tiny at these sizes, and
+# the suite's parallel workers would otherwise oversubscribe the cores.
+torch.set_num_threads(1)
+
 TCFG, TROBOT = tcfg.MpcConfiguration(), tcfg.CircularRobotSpecification()
 
 

@@ -11,7 +11,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "profile_torch_solve.py")]
+             os.path.join(REPO, "scripts", "profile_torch_solve.py"),
+             os.path.join(REPO, "scripts", "profile_torch_sim.py")]
     for root, _, names in os.walk(os.path.join(REPO, "dyobav_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -29,12 +30,43 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
-    assert len(files) >= 10
+    assert len(files) >= 25
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                   "dyobav_tpu")]
     assert not bad, bad
+
+
+def _module_level_imports(path):
+    """Imports that run when the module is imported: every import statement
+    outside a function body (class bodies and `if`/`try` blocks run too)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                   ast.Lambda)):
+            stack.extend(ast.iter_child_nodes(node))
+
+
+def test_port_needs_no_plotting_or_graph_library_to_import():
+    """The machine with the card has numpy, scipy and einops, but no
+    networkx, PIL, pandas or matplotlib: no module of the port may import
+    one of them when it is imported."""
+    bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
+           for m in _module_level_imports(p)
+           if m.split(".")[0] in ("networkx", "PIL", "pandas", "matplotlib")]
+    assert not bad, bad
+    # The scan sees what it should: the JAX package's graph module does
+    # import networkx at module level.
+    jax_graph = os.path.join(REPO, "dyobav_tpu", "maps", "graph.py")
+    assert "networkx" in set(_module_level_imports(jax_graph))
 
 
 def test_build_mpc_solver_defaults_to_cuda():
