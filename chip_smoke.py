@@ -21,8 +21,11 @@ just after:
 3. `batched_spd_solve(A, b, force_kernel=True)`, the entry point of the
    second kernel, on 8192 systems.
 
-Each phase prints a line; the line before the last is the kernel table as
-JSON and the last line is
+Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
+cache) and one call at a time after a write that evicts the L2 cache
+(`ms_cold`); `bound_share` is its bound over `ms_cold` and fails above
+1.05.  Each phase prints a line; the line before the last is the kernel
+table as JSON and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -131,6 +134,8 @@ def spd_inputs(lead, n, n_indef, device, seed=0):
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of `reps` back-to-back calls (after one warm-up):
+    inputs that fit in the L2 cache stay there from one call to the next."""
     import torch
 
     fn()
@@ -144,38 +149,93 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def spd_bound_ms(batch: int, n: int, peaks) -> tuple[float, str]:
-    """Least time for `batch` solves of n x n f32 systems, the larger of
-    two: the bytes that must move -- the lower triangle of each row-major
-    A (all that the factorization and both substitutions read), counted
-    in the 32-byte sectors that hold it, plus g read and d written once --
-    at the memory rate, and the factorization's and substitutions' flops
-    at the fp32 CUDA-core rate."""
+def l2_flush_buffer(device, props=None):
+    """A buffer whose write evicts the whole L2 cache: twice its size
+    (`props.L2_cache_size` bytes, the device's own by default)."""
+    import torch
+
+    if props is None:
+        props = torch.cuda.get_device_properties(device)
+    return torch.empty(2 * props.L2_cache_size // 4 + 1, dtype=torch.float32,
+                       device=device)
+
+
+def cold_ms(fn, reps: int, flush) -> float:
+    """Mean device time of `reps` calls, each timed by its own events after
+    a write of `flush` has evicted the L2 cache.  A device-side sleep ahead
+    of each flush lets the host queue the call before the device reaches
+    it, so that the events time the kernel and not the host's launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(1_000_000)
+        flush.zero_()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def spd_bound_bytes(batch: int, n: int) -> int:
+    """Bytes that `batch` solves of n x n f32 systems must move: the
+    distinct 32-byte sectors that hold the lower triangles of the row-major
+    (batch, n, n) A (all that the factorization and both substitutions
+    read; rows, and systems, may share a sector), plus g read and d
+    written once."""
     rows = np.arange(batch * n, dtype=np.int64)    # row (b, i) is b * n + i
     start = rows * n * 4                           # its first byte in A
     end = start + (rows % n + 1) * 4               # one past its diagonal
-    sectors = int(((end - 1) // 32 - start // 32 + 1).sum())
-    bytes_moved = 32.0 * sectors + 2 * 4.0 * batch * n
+    first, last = start // 32, (end - 1) // 32
+    # Rows are disjoint and in address order, so a sector is shared, if at
+    # all, by a row's last sector and the next row's first.
+    sectors = int((last - first + 1).sum() - (first[1:] == last[:-1]).sum())
+    return 32 * sectors + 2 * 4 * batch * n
+
+
+def spd_bound_ms(batch: int, n: int, peaks) -> tuple[float, str]:
+    """Least time for `batch` solves of n x n f32 systems, the larger of
+    two: `spd_bound_bytes` at the memory rate, and the factorization's and
+    substitutions' flops at the fp32 CUDA-core rate."""
     update_pairs = sum((m * (m + 1)) // 2 for m in range(n))
     flops = batch * (2 * update_pairs          # trailing updates
                      + n * (n + 1) // 2 + n    # column scaling + rsqrt
                      + 2 * n * (n - 1) + 2 * n)  # substitutions
-    t_bytes, t_ops = bytes_moved / peaks[0], flops / peaks[1]
+    t_bytes, t_ops = spd_bound_bytes(batch, n) / peaks[0], flops / peaks[1]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_share(bound_ms: float, ms_cold: float, label: str) -> float:
+    """bound_ms / ms_cold; above 1.05 the kernel would beat the card's own
+    limits, so the byte count or the timing is wrong: raise."""
+    share = bound_ms / ms_cold
+    if not share <= 1.05:
+        raise AssertionError(f"{label}: bound {bound_ms:.4f} ms over a cold "
+                             f"time of {ms_cold:.4f} ms is {share:.3f} > "
+                             "1.05, an impossible reading")
+    return share
 
 
 def check_kernel(name, source, replaces, kernel, plain, shapes, device,
                  peaks):
     """One SPD kernel against its plain version at each shape (leading
-    dims of 40x40 systems, 1/64 of them indefinite); returns the kernel
-    table entry: the first shape's numbers at the top level, the others'
-    under `other_shapes`."""
+    dims of 40x40 systems, 1/64 of them indefinite), timed back to back
+    (`ms`, L2-warm) and one call at a time after an L2 flush (`ms_cold`,
+    against which `bound_share` is taken); returns the kernel table entry:
+    the first shape's numbers at the top level, the others' under
+    `other_shapes`."""
     import torch
 
     n = 40
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": None}
+    flush = l2_flush_buffer(device)
     rows = []
     for lead in shapes:
         B = int(np.prod(lead))
@@ -211,23 +271,26 @@ def check_kernel(name, source, replaces, kernel, plain, shapes, device,
             raise AssertionError(f"{name} {lead}: max abs err {err}, "
                                  f"rel {rel}")
         ms = cuda_ms(lambda: kernel(A, g), 20)
+        ms_cold = cold_ms(lambda: kernel(A, g), 20, flush)
         plain_ms = cuda_ms(lambda: plain(A, g), 2)
         # Yardstick only (the port's kernels never call it): the library's
         # batched Cholesky factor and solve on the same inputs.
         library_ms = cuda_ms(lambda: torch.cholesky_solve(
             g[..., None], torch.linalg.cholesky_ex(A)[0])[..., 0], 5)
         bound, bound_by = spd_bound_ms(B, n, peaks)
+        share = bound_share(bound, ms_cold, f"{name} {lead}")
         print(f"kernel {name} {tuple(lead) + (n, n)}: "
               f"max_abs_err={err:.3e} max_rel_err={rel:.3e} "
               f"non-finite (indefinite) systems={int((~fin).sum())}/"
-              f"{n_indef} ms={ms:.4f} plain_ms={plain_ms:.3f} "
-              f"library_ms={library_ms:.4f} bound_ms={bound:.4f} "
-              f"({bound_by})", flush=True)
+              f"{n_indef} ms={ms:.4f} ms_cold={ms_cold:.4f} "
+              f"plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
+              f"bound_ms={bound:.4f} ({bound_by}) bound_share={share:.4f}",
+              flush=True)
         rows.append({
             "shape": list(lead) + [n, n], "max_abs_err": err,
-            "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": library_ms})
+            "max_rel_err": rel, "ms": ms, "ms_cold": ms_cold,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "bound_share": share, "library_ms": library_ms})
     entry.update(rows[0], other_shapes=rows[1:])
     return entry
 

@@ -23,10 +23,11 @@ import functools
 
 import torch
 
-# The kernel keeps 32 systems' lower triangles and right-hand sides in one
-# block's shared memory: 132 * (n (n + 1) / 2 + n) bytes, within Hopper's
-# 232,448 per block up to n = 57.
-MAX_N = 57
+# The kernel keeps each of a block's 8 systems (one a warp) as a packed
+# lower triangle and n products in shared memory: about
+# 8 * 4 * (n (n + 1) / 2 + n + 4) bytes, 165.0 KB at n = 100 of Hopper's
+# 232,448 per block; a lane owns at most 4 rows.
+MAX_N = 100
 
 
 def batched_spd_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,9 @@ runs 1 step once under `torch.profiler`, tracing the device only (the
 host's events of such a run, millions of operators, do not fit in memory),
 and reports, as one JSON line: the wall times, the summed time and the
 number of the device's own events (kernels, memcpy, memset), the device's
-idle share with and without the profiler, the SPD kernel's launches and
-host syncs, and the kernels that take the most device time.
+idle share with and without the profiler, the SPD kernel's launches, its
+share of the device time and the host syncs, and the kernels that take the
+most device time.
 """
 from __future__ import annotations
 

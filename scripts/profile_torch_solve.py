@@ -9,9 +9,9 @@ times `solve_batch_escalated` and its warm stage `solve_batch` without a
 profiler, then runs the warm stage once under `torch.profiler` and reports
 the host wall time, the summed time of the device's own events (kernels,
 memcpy, memset), the device's idle share (1 - that time / wall time, with
-and without the profiler), the number
-of kernel launches and the operators that take the most host and device
-time, as one JSON line.
+and without the profiler), the SPD kernel's share of that device time, the
+number of kernel launches and the operators that take the most host and
+device time, as one JSON line.
 """
 from __future__ import annotations
 
@@ -28,11 +28,11 @@ sys.path.insert(0, ROOT)
 def profiled(timed_fn, cuda: bool, n_top: int, host: bool = True):
     """Run `timed_fn()` (which returns its own wall seconds, taken around a
     device synchronize) under `torch.profiler`; returns (those seconds,
-    {device_kernel_s, device_events, kernel_launches, aten_calls,
-    top_device_ms, top_host_ms}).  host=False traces the device only: the
-    profiler keeps every event in memory, and a run of millions of
-    operators does not fit with the host's events (the host-side counts
-    and rows are then empty)."""
+    {device_kernel_s, spd_kernel_s, spd_share_of_device, device_events,
+    kernel_launches, aten_calls, top_device_ms, top_host_ms}).  host=False
+    traces the device only: the profiler keeps every event in memory, and
+    a run of millions of operators does not fit with the host's events
+    (the host-side counts and rows are then empty)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -46,6 +46,9 @@ def profiled(timed_fn, cuda: bool, n_top: int, host: bool = True):
     # kernels it launched, which appear again as events of their own.
     kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
+    # The port's SPD kernels (spd_cholesky_solve_kernel and
+    # spd_lanes_solve_kernel).
+    spd_us = sum(e.self_device_time_total for e in kernels if "spd_" in e.key)
     launches = sum(e.count for e in ev
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                                 "cuLaunchKernel", "cuLaunchKernelEx"))
@@ -58,6 +61,8 @@ def profiled(timed_fn, cuda: bool, n_top: int, host: bool = True):
 
     return seconds, {
         "device_kernel_s": device_us / 1e6,
+        "spd_kernel_s": spd_us / 1e6,
+        "spd_share_of_device": spd_us / device_us if device_us else None,
         "device_events": sum(e.count for e in kernels),
         "kernel_launches": launches,
         "aten_calls": aten_calls,

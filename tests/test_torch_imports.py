@@ -10,9 +10,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "profile_torch_solve.py"),
-             os.path.join(REPO, "scripts", "profile_torch_sim.py")]
+    scripts = os.path.join(REPO, "scripts")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(scripts, n) for n in os.listdir(scripts)
+        if n.startswith("profile_torch_") and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "dyobav_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)

@@ -113,20 +113,29 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain(cuda_device):
-    A, g = _mixed(40, seed=3)
-    reps = 64
-    A = np.concatenate([A] * reps).reshape(reps, -1, 40, 40)
-    g = np.concatenate([g] * reps).reshape(reps, -1, 40)
-    Ad, gd = torch.from_numpy(A).to(cuda_device), torch.from_numpy(g).to(
-        cuda_device)
+@pytest.mark.parametrize("lead", [(1,), (13,), (2, 3, 7), (64, 28)])
+@pytest.mark.parametrize("n", [12, 40, 64, 100])
+def test_cuda_kernel_matches_plain(cuda_device, n, lead):
+    """Batch 1, a batch that is not a multiple of the kernel's 8 systems a
+    block, nested leading dims, and a full one; the systems cycle through
+    `_mixed` from index 15, so all but batch 1 hold indefinite ones.  The
+    kernel issues the plain version's operations one for one, so it must
+    equal it bit for bit, and be non-finite exactly where it is."""
+    A, g = _mixed(n, seed=3)
+    B = int(np.prod(lead))
+    idx = (np.arange(B) + 15) % len(A)
+    Ad = torch.from_numpy(A[idx].reshape(*lead, n, n)).to(cuda_device)
+    gd = torch.from_numpy(g[idx].reshape(*lead, n)).to(cuda_device)
     before = spd.spd_solve.launches
     x = spd.spd_solve(Ad, gd)
     torch.cuda.synchronize()
     assert spd.spd_solve.launches == before + 1
     ref = spd.spd_solve_plain(Ad, gd)
     assert x.shape == ref.shape == gd.shape
-    fin = torch.isfinite(ref).all(-1)
-    assert torch.equal(torch.isfinite(x).all(-1), fin)
-    err = (x - ref)[:, :16].abs().max() / ref[:, :16].abs().max()
-    assert float(err) < 1e-5, float(err)
+    assert torch.equal(torch.isfinite(x), torch.isfinite(ref))
+    definite = torch.from_numpy(idx < 16).to(cuda_device)
+    assert torch.equal(x.reshape(B, n)[definite], ref.reshape(B, n)[definite])
+    torch.testing.assert_close(x, ref, rtol=0, atol=0, equal_nan=True)
+    with pytest.raises(ValueError, match="n <="):
+        spd.spd_solve(torch.eye(spd.MAX_N + 1, device=cuda_device)[None],
+                      torch.ones(1, spd.MAX_N + 1, device=cuda_device))

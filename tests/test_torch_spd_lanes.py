@@ -154,8 +154,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain(cuda_device):
-    A, b = _systems(200, 40, seed=3, n_indef=6)
+@pytest.mark.parametrize("B", [1, 13, 200])
+@pytest.mark.parametrize("n", [12, 40, 64, 100])
+def test_cuda_kernel_matches_plain(cuda_device, n, B):
+    """Batch 1, a batch that is not a multiple of the kernel's 8 systems a
+    block, and a larger ragged one with indefinite systems first.  The
+    kernel issues the plain version's operations one for one (no FMA
+    contraction, IEEE sqrt and division), so it must equal it bit for bit,
+    and be non-finite exactly where it is."""
+    n_indef = min(6, B - 2) if B > 2 else 0
+    A, b = _systems(B, n, seed=3, n_indef=n_indef)
     Ad, bd = (torch.from_numpy(A).to(cuda_device),
               torch.from_numpy(b).to(cuda_device))
     before = spd_lanes.batched_spd_solve.launches
@@ -165,11 +173,11 @@ def test_cuda_kernel_matches_plain(cuda_device):
     ref = spd_lanes.batched_spd_solve_plain(Ad, bd)
     assert x.shape == ref.shape == bd.shape
     assert torch.equal(torch.isfinite(x), torch.isfinite(ref))
-    # The kernel issues the plain version's operations one for one (no FMA
-    # contraction, IEEE sqrt and division): 1e-5 of the scale at most.
-    err = (x - ref)[8:].abs().max() / ref[8:].abs().max()
-    assert float(err) < 1e-5, float(err)
+    definite = n_indef + 2 if n_indef else 0
+    assert torch.equal(x[definite:], ref[definite:])
+    torch.testing.assert_close(x, ref, rtol=0, atol=0, equal_nan=True)
     with pytest.raises(ValueError, match="n <="):
+        m = spd_lanes.MAX_N + 1
         spd_lanes.batched_spd_solve(
-            torch.eye(64, device=cuda_device)[None],
-            torch.ones(1, 64, device=cuda_device), force_kernel=True)
+            torch.eye(m, device=cuda_device)[None],
+            torch.ones(1, m, device=cuda_device), force_kernel=True)
