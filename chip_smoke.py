@@ -19,7 +19,14 @@ just after:
    multistart=True)`, run once, and the same sim at 8 scenarios against the
    port's own CPU run;
 3. `batched_spd_solve(A, b, force_kernel=True)`, the entry point of the
-   second kernel, on 8192 systems.
+   second kernel, on 8192 systems;
+4. the SWTA neural predictor: the trained net strictly loaded from
+   `Model/wsd_1t20_full_torch.pt` against the port's CPU run on 20 real
+   input stacks (`MmpInterface.get_motion_prediction` as well), then
+   `build_batch_sim(..., predictor=make_wta_predictor(...))` at
+   WTA_BATCH scenarios for WTA_STEPS steps (the `build_batch_sim[wta]`
+   path, which runs kernel 1 through its solves), and the same sim at
+   WTA_REF_BATCH scenarios against the port's CPU run.
 
 Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
 cache) and one call at a time after a write that evicts the L2 cache
@@ -39,6 +46,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -58,6 +66,11 @@ SIM_STEPS = 10      # control steps of it (depth; an episode is 120)
 SIM_REF_BATCH = 8   # scenarios of the sim's card-vs-CPU check
 SIM_REF_STEPS = 3   # control steps of it
 LANES_BATCH = 8192  # systems of the second kernel's entry-point call
+WTA_BATCH = 64      # scenarios of the neural sim: 64 x 20 offsets = 1280
+                    # images a CNN call (the stem's output alone is 7.9 GB)
+WTA_STEPS = 3       # control steps of it
+WTA_REF_BATCH = 2   # scenarios of the neural sim's card-vs-CPU check
+WTA_REF_STEPS = 2   # control steps of it
 
 
 def card_line() -> str:
@@ -555,6 +568,214 @@ def drive_lanes_path(device):
     return launches
 
 
+def conv_net_flops(net, shape) -> int:
+    """Operations of one forward of `net` on an input of `shape` (batch 1):
+    2 x the multiply-adds of its convolutions and dense layers (BatchNorm,
+    activations and pooling, under 1 % of them, are not counted)."""
+    import torch
+
+    total = [0]
+
+    def count(m, _, out):
+        if isinstance(m, torch.nn.Conv2d):
+            total[0] += (2 * out[0].numel() * m.in_channels // m.groups
+                         * m.kernel_size[0] * m.kernel_size[1])
+        else:
+            total[0] += 2 * m.in_features * m.out_features
+
+    hooks = [m.register_forward_hook(count) for m in net.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            net(torch.zeros((1,) + tuple(shape),
+                            device=next(net.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def wta_net_check(base, device):
+    """Phase wta_net_card_vs_cpu: the strictly loaded net on the card (TF32
+    off) against the port on the CPU, on the 20 offsets' input stacks of a
+    real trajectory on the label map; then `MmpInterface` on both."""
+    import torch
+
+    from dyobav_tpu_torch.models.heatmap import traj_to_input_stack
+    from dyobav_tpu_torch.models.wta_net import full_f32, load_checkpoint
+    from dyobav_tpu_torch.predictors.mmp import MmpInterface
+
+    path = os.path.join(ROOT, "Model", "wsd_1t20_full_torch.pt")
+    nets = {dev: load_checkpoint(path, dev) for dev in (device, "cpu")}
+    traj = [(160.0, 50.0 + 3 * i) for i in range(5)]
+    stack = traj_to_input_stack(torch.tensor(traj), base.ref_map,
+                                torch.arange(1.0, 21.0))     # (20, 7, H, W)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        cpu = nets["cpu"](stack)
+        cpu_s = time.perf_counter() - t0
+        x = stack.to(device)
+        with full_f32():
+            nets[device](x)                       # cuDNN's first call
+            card_ms = cuda_ms(lambda: nets[device](x), 5)
+            card = nets[device](x).cpu()
+        cudnn = torch.backends.cudnn
+        matmul = torch.backends.cuda.matmul
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=True):
+            saved, matmul.allow_tf32 = matmul.allow_tf32, True
+            try:
+                tf32 = nets[device](x).cpu()
+            finally:
+                matmul.allow_tf32 = saved
+    dev_px = float((card - cpu).abs().max())
+    dev_tf32 = float((tf32 - cpu).abs().max())
+    preds = {dev: MmpInterface(net=nets[dev], device=dev
+                               ).get_motion_prediction(traj, base.ref_map, 20)
+             for dev in (device, "cpu")}
+    dev_mmp = max(float(np.abs(a - b).max())
+                  for a, b in zip(preds[device], preds["cpu"]))
+    print(json.dumps({
+        "phase": "wta_net_card_vs_cpu", "images": int(stack.shape[0]),
+        "max_abs_hypothesis_dev_px": dev_px,
+        "mmp_interface_max_dev_px": dev_mmp, "card_ms": card_ms,
+        "cpu_s": cpu_s}), flush=True)
+    print(f"information only: with TF32 on (cuDNN and cuBLAS) the card's "
+          f"hypotheses deviate from the CPU's by {dev_tf32:.4g} px",
+          flush=True)
+    if not (np.isfinite(card.numpy()).all() and tuple(card.shape)
+            == (20, 20, 2)):
+        raise AssertionError("wta net: non-finite or misshapen hypotheses")
+    if not (dev_px <= 1e-2 and dev_mmp <= 1e-2):
+        raise AssertionError(f"wta net: card and CPU deviate by {dev_px} px "
+                             f"(MmpInterface {dev_mmp} px), over 1e-2")
+    return nets[device]
+
+
+def make_wta(base, net, device):
+    """The neural predictor of `build_batch_sim` on `device`."""
+    from dyobav_tpu_torch.predictors.mmp import ObstacleSnapper
+    from dyobav_tpu_torch.sim.batch import make_wta_predictor
+
+    return make_wta_predictor(
+        net, base.ref_map, base.ct2real, base.config_mpc.N_hor,
+        snap_tables=ObstacleSnapper(255.0 - base.ref_map).tables(),
+        scale2nn=base.sim_config.scale2nn, device=device)
+
+
+def drive_wta_sim_path(cfg, robot, scfg, base, net, device):
+    """Path 4: the closed-loop batched sim with the neural predictor at
+    WTA_BATCH scenarios.  Returns kernel 1's launches on it."""
+    import torch
+
+    from dyobav_tpu_torch.ops import engine, spd
+    from dyobav_tpu_torch.sim.batch import BatchResult, build_batch_sim
+    from dyobav_tpu_torch.sim.scenarios import random_scenarios
+
+    B, T = WTA_BATCH, WTA_STEPS
+    batch = random_scenarios(base, B, seed=0)
+    predict = make_wta(base, net, device)
+    calls = []
+
+    def timed_predict(hist):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = predict(hist)
+        end.record()
+        calls.append((start, end, hist.shape[0] * hist.shape[2]))
+        return out
+
+    run = build_batch_sim(cfg, robot, scfg, n_steps=T, multistart=True,
+                          predictor=timed_predict)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run(batch, np.arange(B))
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    launches, syncs = spd.spd_solve.launches, engine.any_lane.syncs
+    ms = [s.elapsed_time(e) for s, e, _ in calls]
+    images = calls[0][2] * cfg.N_hor
+    gflop = conv_net_flops(net, (7,) + tuple(base.ref_map.shape)) / 1e9
+    steady = float(np.mean(ms[1:])) if len(ms) > 1 else ms[0]
+    r = {f: getattr(res, f).cpu().numpy() for f in BatchResult._fields}
+    fail_per_step = float(r["solver_fail_steps"].mean()) / T
+    print(json.dumps({
+        "main_path": "build_batch_sim[wta]", "scenarios": B, "steps": T,
+        "sim_s": sim_s, "s_per_step": sim_s / T,
+        "control_steps_per_s": B * T / sim_s,
+        "predictor_calls": len(ms), "predictor_ms_per_call": ms,
+        "predictor_share_of_sim": sum(ms) / 1e3 / sim_s,
+        "cnn_images_per_call": images, "cnn_gflop_per_image": gflop,
+        "cnn_tflop_per_s_steady": gflop * images / steady,  # GFLOP/ms
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "solver_fail_steps_mean": float(r["solver_fail_steps"].mean()),
+        "escalation_overflow_steps_mean": float(
+            r["escalation_overflow_steps"].mean()),
+        "spd_launches": launches, "spd_launches_per_step": launches / T,
+        "host_syncs_per_step": syncs / T,
+        "collided": int(r["collided"].sum()),
+        "collided_static": int(r["collided_static"].sum()),
+        "min_clearance_min": float(r["min_clearance"].min()),
+        "min_static_clearance_min": float(r["min_static_clearance"].min()),
+        "deviation_mean": float(r["deviation_mean"].mean())}), flush=True)
+    for f, val in r.items():
+        if val.shape[0] != B:
+            raise AssertionError(f"wta sim: {f} has shape {val.shape}")
+        if val.dtype.kind == "f" and not np.isfinite(val).all():
+            raise AssertionError(f"wta sim: non-finite {f}")
+    if r["collided_static"].mean() > 0.02:
+        raise AssertionError("wta sim: more than 2 % of the lanes ended "
+                             "inside a static polygon")
+    if fail_per_step > 0.5:
+        raise AssertionError(f"wta sim: {fail_per_step:.3f} non-converged "
+                             "solves per lane and step")
+    if len(ms) != T + 1:          # every step and the cold pre-solve
+        raise AssertionError(f"wta sim: {len(ms)} predictor calls")
+    if launches <= 0:
+        raise AssertionError("wta sim never launched spd_cholesky")
+    return launches
+
+
+def wta_sim_reference_check(cfg, robot, scfg, base, net, device):
+    """The neural sim on the card against the port's own CPU run: same
+    scenarios, same stagger stream."""
+    import torch
+
+    from dyobav_tpu_torch.models.wta_net import load_checkpoint
+    from dyobav_tpu_torch.sim.batch import build_batch_sim
+    from dyobav_tpu_torch.sim.scenarios import random_scenarios
+
+    B, T = WTA_REF_BATCH, WTA_REF_STEPS
+    batch = random_scenarios(base, B, seed=1)
+    rng = np.random.default_rng(1)
+    stream = (rng.choice([-1.0, 1.0], (B, T, 1))
+              * rng.integers(0, 11, (B, T, 1)) / 10.0 * 0.5).astype(np.float32)
+    nets = {"cuda": net, "cpu": load_checkpoint(
+        os.path.join(ROOT, "Model", "wsd_1t20_full_torch.pt"), "cpu")}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res, (traj, _) = build_batch_sim(
+            cfg, robot, scfg, n_steps=T, multistart=True, record_traj=True,
+            stagger_stream=stream, device=dev,
+            predictor=make_wta(base, nets[dev], dev))(batch, np.arange(B))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (res, traj.cpu().numpy(), time.perf_counter() - t0)
+    (rg, tg, sg), (rc, tc, s_cpu) = out["cuda"], out["cpu"]
+    dev_m = np.abs(tg[:, :, :2] - tc[:, :, :2]).max(axis=(0, 2))   # (B,)
+    flags_equal = all(
+        torch.equal(getattr(rg, f).cpu(), getattr(rc, f))
+        for f in ("success", "collided", "collided_static", "steps_used"))
+    print(f"neural sim reference check (B={B}, {T} steps, card vs the port "
+          f"on the CPU): max robot position deviation per lane "
+          f"{np.array2string(dev_m, precision=2)} m, flags equal "
+          f"{flags_equal}; card {sg:.1f} s, CPU {s_cpu:.1f} s", flush=True)
+    if not (dev_m.max() <= 1e-3 and flags_equal):
+        raise AssertionError("card and CPU runs of the neural sim disagree")
+
+
 def main() -> int:
     import torch
 
@@ -567,6 +788,7 @@ def main() -> int:
                                           SolverConfiguration)
     from dyobav_tpu_torch.kernels import build
     from dyobav_tpu_torch.ops import spd, spd_lanes
+    from dyobav_tpu_torch.sim.harness import MainBase
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -578,9 +800,12 @@ def main() -> int:
     print(f"card: {kind}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, devices {torch.cuda.device_count()}",
           flush=True)
-    # Build the kernels from the checkout's sources.
-    for name in ("spd_cholesky", "spd_lanes"):
-        res = build.build(name)
+    # Build the kernels from the checkout's sources, one nvcc each, all
+    # started together.
+    names = ("spd_cholesky", "spd_lanes")
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = list(pool.map(build.build, names))
+    for name, res in zip(names, builds):
         usage = [ln.strip() for ln in res.log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"build {name}: {res.seconds:.2f} s nvcc "
@@ -592,16 +817,20 @@ def main() -> int:
     # slots, 4 rungs); the sim's warm multistart stage (5 candidates x
     # SIM_BATCH lanes, 4 rungs), its cold re-solve of the distressed lanes
     # (5 candidates x K_sim slots) and its step-0 cold pre-solve (SIM_BATCH
-    # lanes); the second kernel at the solve's 8192 systems, at its
-    # docstring's 512 and at a ragged 200.
+    # lanes); the neural sim's three stages likewise at WTA_BATCH lanes;
+    # the second kernel at the solve's 8192 systems, at its docstring's 512
+    # and at a ragged 200.  The sims' cold slots are sim/batch.py's
+    # max(B // 2, min(B, 8), 1).
     K = max(BATCH // 16, min(BATCH, 16), 1)
     K_sim = max(SIM_BATCH // 2, min(SIM_BATCH, 8), 1)
+    K_wta = max(WTA_BATCH // 2, min(WTA_BATCH, 8), 1)
     entry1 = check_kernel(
         "spd_cholesky", "dyobav_tpu_torch/csrc/spd_cholesky.cu",
         "dyobav_tpu/ops/pallas_spd.py:46", spd.spd_solve,
         spd.spd_solve_plain,
         [(BATCH, 4), (K, 4), (5 * SIM_BATCH, 4), (5 * K_sim, 4),
-         (SIM_BATCH, 4)], device, PEAKS)
+         (SIM_BATCH, 4), (5 * WTA_BATCH, 4), (5 * K_wta, 4),
+         (WTA_BATCH, 4)], device, PEAKS)
     entry2 = check_kernel(
         "spd_lanes", "dyobav_tpu_torch/csrc/spd_lanes.cu",
         "docs/negative_results/pallas_linalg_lanes.py:30",
@@ -615,10 +844,15 @@ def main() -> int:
     sim_launches = drive_sim_path(cfg, robot, scfg)
     sim_reference_check(cfg, robot, scfg)
     lanes_launches = drive_lanes_path(device)
+    base = MainBase(max_run_time_step=WTA_STEPS, evaluation=True, seed=0)
+    net = wta_net_check(base, device)
+    wta_launches = drive_wta_sim_path(cfg, robot, scfg, base, net, device)
+    wta_sim_reference_check(cfg, robot, scfg, base, net, device)
 
-    entry1["launches"] = solve_launches + sim_launches
+    entry1["launches"] = solve_launches + sim_launches + wta_launches
     entry1["launches_by_path"] = {"solve_batch_escalated": solve_launches,
-                                  "build_batch_sim": sim_launches}
+                                  "build_batch_sim": sim_launches,
+                                  "build_batch_sim[wta]": wta_launches}
     entry2["launches"] = lanes_launches
     entry2["launches_by_path"] = {"batched_spd_solve": lanes_launches}
     print(json.dumps({"kernels": [entry1, entry2]}), flush=True)

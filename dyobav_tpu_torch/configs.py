@@ -1,9 +1,10 @@
 """Typed configuration for the PyTorch port (L0).
 
-A copy of the configuration families the NMPC solve and the batched
-simulation need, with the same field names and defaults as
-`dyobav_tpu.configs`, so the reference YAML files and the JAX package's
-`to_dict()` output load unchanged.  The port
+A copy of the configuration families the NMPC solve, the batched
+simulation and the SWTA predictor need, with the same field names and
+defaults as `dyobav_tpu.configs` (but for `WtaNetConfiguration.model_path`,
+which names the torch checkpoint), so the reference YAML files and the JAX
+package's `to_dict()` output load unchanged.  The port
 keeps its own copy rather than importing the JAX package's module.
 `yaml` is imported only by the functions that read or write YAML.
 """
@@ -141,6 +142,23 @@ class MpcConfiguration(_YamlConfig):
             + self.N_hor                                 # static obstacle weights
             + self.N_hor                                 # dynamic obstacle weights
         )
+
+
+@dataclass(frozen=True)
+class WtaNetConfiguration(_YamlConfig):
+    """The SWTA predictor net's fields that inference reads (ref
+    `configs.py:106-137`; the JAX package's class also carries the training
+    fields).  `model_path` is the torch `state_dict` of the trained net,
+    relative to the repository root."""
+
+    dim_out: int = 2
+    num_hypos: int = 20
+    obsv_len: int = 5
+    input_channel: int = 7
+    fc_input: int = 3200
+    x_max_px: int = 330
+    y_max_px: int = 293
+    model_path: str = "Model/wsd_1t20_full_torch.pt"
 
 
 @dataclass(frozen=True)

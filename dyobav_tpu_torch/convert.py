@@ -1,13 +1,14 @@
-"""Carry the NMPC and simulation state across from the JAX package.
+"""Carry state and weights across from the JAX package.
 
-The batched solve and simulation have no learned weights: what crosses is
-the structured parameter set, the configurations, the warm start and the
-scenario tensors, each as plain numpy data or plain dicts, so this module
-needs neither JAX nor the JAX package.
+What crosses is the structured parameter set, the configurations, the warm
+start, the scenario tensors and the SWTA net's Flax variables, each as
+plain numpy data or plain dicts, so this module needs neither JAX nor the
+JAX package.
 
     params_from_numpy(p_jax_as_numpy, device)  -> ops.params.MpcParams
     config_from_dict(SolverConfiguration, d)   -> configs.SolverConfiguration
     scenario_from_numpy(sc_jax_as_numpy, device) -> sim.batch.Scenario
+    wta_state_dict_from_flax(variables_as_numpy) -> models.wta_net state_dict
 """
 from __future__ import annotations
 
@@ -74,3 +75,84 @@ def scenario_from_numpy(sc: Any, device=None):
     return scenario_to_device(
         Scenario(*[np.asarray(get(name)) for name in Scenario._fields]),
         device or "cpu")
+
+
+def _wta_module_pairs(params: Mapping, lite: bool, blocks) -> list:
+    """Ordered (flax_path, torch_prefix, kind) for every weighted module of
+    `ConvMultiHypoNet`, kind 'conv' | 'bn' | 'dense'.  A block has a
+    shortcut where its Flax parameters hold one."""
+    bb = "ResNet34Lite_0" if lite else "ResNet34_0"
+    pairs = []
+    for i in range(1 if lite else 3):
+        pairs += [(f"{bb}/ConvBNLeaky_{i}/Conv_0",
+                   f"resnet34.stem.conv{i + 1}.0", "conv"),
+                  (f"{bb}/ConvBNLeaky_{i}/BatchNorm_0",
+                   f"resnet34.stem.conv{i + 1}.1", "bn")]
+    b = 0
+    for stage, nb in enumerate(blocks):
+        for i in range(nb):
+            fx, tp = f"{bb}/BasicBlock_{b}", f"resnet34.layer{stage + 1}.{i}"
+            for c in (0, 1):
+                pairs += [(f"{fx}/ConvBNLeaky_{c}/Conv_0",
+                           f"{tp}.conv{c + 1}.0", "conv"),
+                          (f"{fx}/ConvBNLeaky_{c}/BatchNorm_0",
+                           f"{tp}.conv{c + 1}.1", "bn")]
+            if "Conv_0" in params[bb][f"BasicBlock_{b}"]:
+                pairs += [(f"{fx}/Conv_0", f"{tp}.downsample.0", "conv"),
+                          (f"{fx}/BatchNorm_0", f"{tp}.downsample.1", "bn")]
+            b += 1
+    return pairs + [("Dense_0", "fc1", "dense"),
+                    ("Dense_1", "swarm.layer_hypos", "dense")]
+
+
+def _fc1_perm(fc_input: int, n_channels: int) -> np.ndarray:
+    """perm[i_flax] = i_torch: Flax flattens the (Hs, Ws, C) feature map,
+    torch the (C, Hs, Ws) one."""
+    spatial = fc_input // n_channels
+    hs = int(round(np.sqrt(spatial)))
+    if hs * hs != spatial:
+        raise ValueError(f"non-square feature map of {spatial} cells")
+    return np.arange(fc_input).reshape(n_channels, hs, hs).transpose(
+        1, 2, 0).reshape(-1)
+
+
+def wta_state_dict_from_flax(variables: Mapping, lite: bool = True,
+                             blocks=(3, 4, 6, 3)) -> dict:
+    """The JAX package's `ConvMultiHypoNet` variables `{'params',
+    'batch_stats'}` (numpy leaves, nested dicts) -> the port's
+    `models.wta_net.ConvMultiHypoNet` `state_dict` (CPU tensors).
+
+    Conv kernels HWIO -> OIHW, dense kernels transposed, BatchNorm
+    scale / bias / mean / var to weight / bias / running_mean /
+    running_var, and fc1's input axis permuted from the NHWC flattening to
+    the NCHW one.  `blocks` is the net's blocks per stage.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+
+    def leaves(tree, path):
+        for part in path.split("/"):
+            tree = tree[part]
+        return {k: np.asarray(v, dtype=np.float32) for k, v in tree.items()}
+
+    sd = {}
+    last_channels = None
+    for fx, tp, kind in _wta_module_pairs(params, lite, blocks):
+        p = leaves(params, fx)
+        if kind == "conv":
+            sd[f"{tp}.weight"] = p["kernel"].transpose(3, 2, 0, 1)  # HWIO
+            if "bias" in p:
+                sd[f"{tp}.bias"] = p["bias"]
+            last_channels = p["kernel"].shape[3]
+        elif kind == "bn":
+            s = leaves(stats, fx)
+            sd[f"{tp}.weight"], sd[f"{tp}.bias"] = p["scale"], p["bias"]
+            sd[f"{tp}.running_mean"] = s["mean"]
+            sd[f"{tp}.running_var"] = s["var"]
+            sd[f"{tp}.num_batches_tracked"] = np.asarray(0, np.int64)
+        else:
+            w = p["kernel"].T                            # (out, in)
+            if tp == "fc1":
+                w = w[:, np.argsort(_fc1_perm(w.shape[1], last_channels))]
+            sd[f"{tp}.weight"], sd[f"{tp}.bias"] = w, p["bias"]
+    return {k: torch.tensor(v) for k, v in sd.items()}

@@ -202,6 +202,9 @@ def assemble_dyn_obstacles(humans, prediction, n_slots: int, n_cols: int,
     mu_pred, std_pred, alpha_pred = prediction
     B, H = humans.shape[:2]
     K = mu_pred.shape[2]
+    if K > n_slots:
+        raise ValueError(f"{K} prediction slots exceed the solver's {n_slots}"
+                         " dynamic-obstacle slots (Ndynobs)")
     dev = humans.device
     dyn = torch.zeros(B, n_slots, N + 1, n_cols, dtype=dtype, device=dev)
     dyn[..., 5] = 1.0
@@ -662,7 +665,89 @@ def build_step_program(*args, **kwargs):
         "(ROADMAP.md, queue A item 11)")
 
 
-def make_wta_predictor(*args, **kwargs):
-    raise NotImplementedError(
-        "make_wta_predictor (the SWTA CNN + clustering predictor) is not "
-        "ported yet (ROADMAP.md, queue A item 7)")
+def make_wta_predictor(net, ref_map_px, transform, n_hor: int,
+                       snap_tables=None, obsv_len: int = 5,
+                       max_clusters: int = 8, enlarge: float = 2.0,
+                       scale2nn: float = 1.0, dtype=torch.float32,
+                       device=None):
+    """Neural predictor for the batched sim: SWTA CNN + on-device CGF.
+
+    The JAX package's pipeline for a batch of lanes: world-frame histories
+    -> pixel frame -> 7-channel input stacks for all horizon offsets
+    (`models.heatmap`) -> ONE forward of `net` over all B x H x n_hor
+    images -> optional obstacle snap (gather tables) -> world frame ->
+    `ops.cluster.cluster_gaussian_fit` per (lane, human, offset) with
+    eps = 1 m -> (mu, sigma, alpha) slots.  The net runs in full float32
+    (`models.wta_net.full_f32`), as the JAX package's default dtype asks;
+    the CGF takes no matrix product of coordinates, so it does too.
+    Memory: the batch is B x H x n_hor images of (7, Hpx, Wpx); the stem's
+    output alone is 64 x 147 x 165 floats an image at 293 x 330 px.
+
+    Args:
+        net: `models.wta_net.ConvMultiHypoNet` in eval mode on `device`.
+        ref_map_px: (Hpx, Wpx) grayscale map channel.
+        transform: `maps.transforms.ScaleOffsetReverseTransform` world<->px.
+        snap_tables: optional (3, Hpx, Wpx) nearest-edge row / col tables
+            and occupied mask (`predictors.mmp.ObstacleSnapper.tables()`).
+        max_clusters: cluster slots per (human, offset); H x max_clusters
+            must stay <= MpcConfiguration.Ndynobs.
+        device: None: the current CUDA device; raises without one.
+    Returns:
+        predict(hist (B, 5, H, 2)) -> (mu (B, N, H*C, 2), std (B, N, H*C,
+        2), alpha (B, N, H*C)), the contract of `build_batch_sim`.
+    """
+    from ..models.heatmap import traj_to_input_stack
+    from ..models.wta_net import full_f32
+    from ..ops.cluster import cluster_gaussian_fit
+
+    device = resolve_device(device)
+    ref_map = torch.as_tensor(np.asarray(ref_map_px), dtype=dtype,
+                              device=device)
+    Hpx, Wpx = ref_map.shape
+    k = torch.tensor(transform.k, dtype=dtype, device=device)
+    b = torch.tensor(transform.b, dtype=dtype, device=device)
+    ym, y_rev = float(transform.ym), bool(transform.yr)
+    tables = (None if snap_tables is None else torch.as_tensor(
+        np.asarray(snap_tables), device=device).reshape(3, -1))
+    offsets = torch.arange(1, n_hor + 1, dtype=dtype, device=device)
+
+    def world_to_px(xy):
+        px = (xy - b) / k
+        if y_rev:
+            px = torch.stack([px[..., 0], ym - px[..., 1]], dim=-1)
+        return px * scale2nn
+
+    def px_to_world(px):
+        px = px / scale2nn
+        if y_rev:
+            px = torch.stack([px[..., 0], ym - px[..., 1]], dim=-1)
+        return px * k + b
+
+    def snap(points_px):
+        """Points inside an obstacle move to the nearest edge cell; the int
+        cast truncates toward zero, as `astype(int32)` does, then clips."""
+        if tables is None:
+            return points_px
+        cols = torch.clamp(points_px[..., 0].to(torch.int32), 0, Wpx - 1)
+        rows = torch.clamp(points_px[..., 1].to(torch.int32), 0, Hpx - 1)
+        cell = (rows.long() * Wpx + cols.long()).reshape(-1)
+        near = tables[:, cell].reshape((3,) + tuple(cols.shape))
+        snapped = torch.stack([near[1], near[0]], dim=-1).to(dtype)
+        return torch.where((near[2] > 0)[..., None], snapped, points_px)
+
+    def predict(hist_world):
+        B, _, H, _ = hist_world.shape
+        trajs = world_to_px(hist_world).transpose(1, 2)       # (B, H, 5, 2)
+        stack = traj_to_input_stack(trajs, ref_map, offsets,
+                                    obsv_len=obsv_len)  # (B, H, N, 7, h, w)
+        with torch.no_grad(), full_f32():
+            hypos = net(stack.reshape((-1,) + stack.shape[3:]))
+        hypos = snap(hypos.reshape(B, H, n_hor, -1, 2).to(dtype))
+        mu, std, alpha = cluster_gaussian_fit(
+            px_to_world(hypos), eps=1.0, enlarge=enlarge,
+            max_clusters=max_clusters)                     # (B, H, N, C, ...)
+        return (mu.transpose(1, 2).reshape(B, n_hor, -1, 2),
+                std.transpose(1, 2).reshape(B, n_hor, -1, 2),
+                alpha.transpose(1, 2).reshape(B, n_hor, -1))
+
+    return predict

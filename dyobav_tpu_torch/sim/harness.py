@@ -2,10 +2,9 @@
 
 The part of `dyobav_tpu.sim.harness` the batched simulation's scenario
 constructors need: `scenario(index)` and `MainBase.__init__` / `_load_map`
-(configurations, the pixel-to-world transform, the occupancy and geometric
-maps, the navigation graph).  `ref_map` (the predictor's map channel, read
-from `label.png`) stays None until the neural predictor is ported
-(ROADMAP.md, queue A item 7).  The per-scenario episode loop (`run`,
+(configurations, the pixel-to-world transform, the predictor's map channel
+`ref_map`, the occupancy and geometric maps, the navigation graph).  The
+per-scenario episode loop (`run`,
 `run_once`, agent and interface preparation) is not ported yet and raises
 NotImplementedError (ROADMAP.md, queue A item 8).
 """
@@ -20,6 +19,7 @@ import numpy as np
 from ..configs import (CircularRobotSpecification, MpcConfiguration,
                        SolverConfiguration, WarehouseSimConfiguration)
 from ..interfaces.map_interface import MapInterface
+from ..maps.png import read_png
 from ..maps.transforms import ScaleOffsetReverseTransform
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -74,7 +74,14 @@ class MainBase:
 
         self.data_dir = data_dir or os.path.join(REPO_ROOT, "data",
                                                  self.sim_config.map_dir)
+
+        # Grayscale reference map (the predictor's map channel), if present:
+        # the mean of label.png's RGB.
+        label_path = os.path.join(self.data_dir, "label.png")
         self.ref_map = None
+        if os.path.exists(label_path):
+            rgb = read_png(label_path)[:, :, :3].astype(np.float64)
+            self.ref_map = rgb.sum(axis=2) / 3.0
 
         sc = self.sim_config
         self.ct2real = ScaleOffsetReverseTransform(

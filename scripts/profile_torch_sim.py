@@ -2,6 +2,7 @@
 """Where the PyTorch port's closed-loop batched simulation spends its time.
 
     python3 scripts/profile_torch_sim.py              # 256 scenarios, card
+    python3 scripts/profile_torch_sim.py --wta        # neural, 64 scenarios
     python3 scripts/profile_torch_sim.py --device cpu --batch 4
 
 Builds chip_smoke.py's simulation (`random_scenarios(base, B, seed=0)`,
@@ -14,7 +15,10 @@ and reports, as one JSON line: the wall times, the summed time and the
 number of the device's own events (kernels, memcpy, memset), the device's
 idle share with and without the profiler, the SPD kernel's launches, its
 share of the device time and the host syncs, and the kernels that take the
-most device time.
+most device time.  `--wta` swaps the constant-velocity predictor for the
+SWTA neural one (`make_wta_predictor`, trained net) and also profiles one
+predictor call alone: its device time and its share of the one-step run's
+(which calls it twice: the cold pre-solve and the step).
 """
 from __future__ import annotations
 
@@ -33,7 +37,10 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="scenarios (default: 256, or 64 with --wta)")
+    ap.add_argument("--wta", action="store_true",
+                    help="drive the sim with the SWTA neural predictor")
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA device")
     ap.add_argument("--top", type=int, default=12)
@@ -52,14 +59,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = engine.resolve_device(args.device)
     cuda = dev.type == "cuda"
+    n = args.batch or (64 if args.wta else 256)
     base = MainBase(evaluation=True, seed=0)
-    batch = random_scenarios(base, args.batch, seed=0, device=dev)
-    seeds = np.arange(args.batch)
+    batch = random_scenarios(base, n, seed=0, device=dev)
+    seeds = np.arange(n)
+    predictor = None
+    if args.wta:
+        from chip_smoke import make_wta
+        from dyobav_tpu_torch.models.wta_net import load_checkpoint
+
+        predictor = make_wta(base, load_checkpoint(os.path.join(
+            ROOT, "Model", "wsd_1t20_full_torch.pt"), dev), dev)
 
     def timed(n_steps):
         run = build_batch_sim(base.config_mpc, base.config_robot,
                               SolverConfiguration(), n_steps=n_steps,
-                              multistart=True, device=dev)
+                              multistart=True, predictor=predictor,
+                              device=dev)
         if cuda:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -75,9 +91,29 @@ def main() -> int:
                              host=False)
     device_s = stats["device_kernel_s"]
     step_s = (three_s - one_s) / 2
+    wta = {}
+    if predictor is not None:
+        hist = torch.as_tensor(batch.human_starts, dtype=torch.float32,
+                               device=dev)[:, None].expand(-1, 5, -1, -1)
+
+        def timed_predict():
+            t0 = time.perf_counter()
+            predictor(hist)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            return time.perf_counter() - t0
+
+        timed_predict()
+        pred_s, pstats = profiled(timed_predict, cuda, args.top, host=False)
+        wta = {"predictor_call_s": pred_s,
+               "predictor_device_s": pstats["device_kernel_s"],
+               "predictor_share_of_device_one_step_run":
+               2 * pstats["device_kernel_s"] / device_s if cuda else None,
+               "predictor_top_device_ms": pstats["top_device_ms"]}
     print(json.dumps({
         "card": card_line() if cuda else "cpu",
-        "scenarios": args.batch,
+        "predictor": "wta" if args.wta else "cv",
+        "scenarios": n,
         "one_step_run_s": one_s, "three_step_run_s": three_s,
         "step_s": step_s, "cold_presolve_s": one_s - step_s,
         "profiled_one_step_run_s": prof_s,
@@ -88,7 +124,7 @@ def main() -> int:
         if cuda else None,
         "spd_launches_one_step_run": spd.spd_solve.launches,
         "host_syncs_one_step_run": engine.any_lane.syncs,
-        **stats}))
+        **stats, **wta}))
     return 0
 
 

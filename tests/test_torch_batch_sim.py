@@ -139,7 +139,7 @@ def test_sim_defaults_to_cuda_and_unported_raise():
         tb.build_batch_sim(TCFG, TROBOT)
     with pytest.raises(NotImplementedError, match="item 11"):
         tb.build_step_program(TCFG, TROBOT)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tb.make_wta_predictor(None, None, None, None, 20)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tb.make_wta_predictor(None, np.zeros((4, 5)), None, 20)
     with pytest.warns(UserWarning, match="no effect"):
         tb.build_batch_sim(TCFG, TROBOT, escalate=False, device="cpu")

@@ -51,7 +51,7 @@ def test_map_equals_jax_map(bases):
     np.testing.assert_array_equal(tbase.occ_map(), jbase.occ_map())
     assert tbase.map_extent == jbase.map_extent
     assert tbase.ct2real([10.0, 20.0, 0.3]) == jbase.ct2real([10.0, 20.0, 0.3])
-    assert tbase.ref_map is None
+    np.testing.assert_array_equal(tbase.ref_map, jbase.ref_map)
     for preset in range(3):
         for x, y in zip(th.scenario(preset), jh.scenario(preset)):
             np.testing.assert_array_equal(np.asarray(x, dtype=object),
