@@ -26,7 +26,20 @@ just after:
    `build_batch_sim(..., predictor=make_wta_predictor(...))` at
    WTA_BATCH scenarios for WTA_STEPS steps (the `build_batch_sim[wta]`
    path, which runs kernel 1 through its solves), and the same sim at
-   WTA_REF_BATCH scenarios against the port's CPU run.
+   WTA_REF_BATCH scenarios against the port's CPU run;
+5. the per-episode harness, the entry point of
+   `python -m dyobav_tpu_torch.sim eval`: scenario 1 with the cvmp
+   predictor for HARNESS_REF_STEPS steps on the card against the port's
+   CPU run (`harness_card_vs_cpu`), then `MainBase(scenario_index=0,
+   evaluation=True).run("mpc", "cvmp")` at the shipped
+   `SolverConfiguration()` for HARNESS_STEPS steps (`harness[mpc+cvmp]`)
+   and `run("mpc", "mmp")` at the entry's mmp budget (cold profile (30,
+   10, 10, 1, 10.0)) for HARNESS_MMP_STEPS steps (`harness[mpc+mmp]`):
+   one 5-candidate `solve_batch` a step, kernel 1 at (5, 4).  A step
+   solves one robot, so the host sets its time: these run in a second
+   process (its own launch counts) beside paths 1-4, started once the
+   kernels are timed.  Each fails on a non-finite action, a robot inside
+   a static polygon, or a robot not 0.1 m nearer its goal along its route.
 
 Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
 cache) and one call at a time after a write that evicts the L2 cache
@@ -42,10 +55,13 @@ It needs a CUDA device and the repository beside it; it imports no JAX.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
+import queue
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -71,6 +87,15 @@ WTA_BATCH = 64      # scenarios of the neural sim: 64 x 20 offsets = 1280
 WTA_STEPS = 3       # control steps of it
 WTA_REF_BATCH = 2   # scenarios of the neural sim's card-vs-CPU check
 WTA_REF_STEPS = 2   # control steps of it
+HARNESS_STEPS = 4   # control steps of harness[mpc+cvmp] (an episode is 120)
+HARNESS_MMP_STEPS = 3   # control steps of harness[mpc+mmp]
+HARNESS_REF_STEPS = 3   # control steps of harness_card_vs_cpu, at a small
+                        # budget: 3 warm iterations, the cold profile 9
+HARNESS_REF_BUDGET = dict(max_inner_iters=3, max_outer_iters=1,
+                          inner_iters_later=1, newton_substeps=1,
+                          cold_profile=(6, 2, 3, 1, 10.0))
+MMP_BUDGET = dict(cold_profile=(30, 10, 10, 1, 10.0))   # sim/entry.py's
+HARNESS_TIMEOUT_S = 600   # wait for the harness process after paths 1-4
 
 
 def card_line() -> str:
@@ -344,6 +369,7 @@ def reset_counts():
     spd.spd_solve.launches = 0
     spd_lanes.batched_spd_solve.launches = 0
     engine.any_lane.syncs = 0
+    engine.to_host.syncs = 0
 
 
 def drive_solve_path(cfg, robot, scfg, device):
@@ -776,6 +802,167 @@ def wta_sim_reference_check(cfg, robot, scfg, base, net, device):
         raise AssertionError("card and CPU runs of the neural sim disagree")
 
 
+def harness_reference_check(device):
+    """Phase harness_card_vs_cpu: the harness on the card against the
+    port's own CPU run, scenario 1 with the cvmp predictor, seed 1 (the
+    pedestrian's stagger is drawn from the seeded `random.Random`, so both
+    runs see the same)."""
+    from dyobav_tpu_torch.configs import SolverConfiguration
+    from dyobav_tpu_torch.sim.harness import MainBase
+
+    T = HARNESS_REF_STEPS
+    out = {}
+    for dev in (device, "cpu"):
+        base = MainBase(max_run_time_step=T, evaluation=True, seed=1,
+                        scenario_index=1, device=dev,
+                        solver_config=SolverConfiguration(
+                            **HARNESS_REF_BUDGET))
+        robot, humans = base._prepare_agents()
+        intf, pred = base._prepare_interfaces(robot, "cvmp", "mpc")
+        t0 = time.perf_counter()
+        for _ in range(T):
+            base.run_one_step(robot, humans, intf, pred)
+        tracker = intf.traj_tracker
+        out[dev] = (np.array([s[:2] for s in robot.past_traj[1:]]),
+                    [s == "Converged" for s in tracker.solver_status_timelist],
+                    tracker.escalation_count, time.perf_counter() - t0)
+    (sg, cg, eg, tg), (sc, cc, ec, tc) = out[device], out["cpu"]
+    dev_m = np.abs(sg - sc).max(axis=1)                   # (T,)
+    print(json.dumps({
+        "phase": "harness_card_vs_cpu", "scenario": 1, "steps": T,
+        "robot_dev_m_per_step": dev_m.tolist(), "converged_card": cg,
+        "converged_cpu": cc, "escalations_card": eg, "escalations_cpu": ec,
+        "card_s": tg, "cpu_s": tc}), flush=True)
+    # The two runs share every operation but the SPD kernel (bit for bit
+    # its plain version) and the libraries' rounding.
+    if not (dev_m.shape == (T,) and dev_m.max() <= 1e-3 and cg == cc
+            and eg == ec):
+        raise AssertionError("card and CPU runs of the harness disagree")
+
+
+def route_left(path, state) -> float:
+    """Distance from `state` to the goal along the route: to the route's
+    first waypoint, then along its legs."""
+    pts = np.array([state[:2]] + [p[:2] for p in path], dtype=np.float64)
+    return float(np.linalg.norm(np.diff(pts, axis=0), axis=1).sum())
+
+
+def drive_harness_path(predictor, scfg, T, device):
+    """Paths 5-6: `MainBase.run("mpc", predictor)` on scenario 0 for T
+    steps, the bundles warmed first as a process's first tracker does.
+    Returns kernel 1's launches on the run."""
+    import torch
+
+    from dyobav_tpu_torch.ops import engine, spd
+    from dyobav_tpu_torch.sim import metrics
+    from dyobav_tpu_torch.sim.harness import MainBase
+    from dyobav_tpu_torch.trackers.mpc_tracker import TrajectoryTracker
+
+    name = f"harness[mpc+{predictor}]"
+    base = MainBase(max_run_time_step=T, evaluation=True, seed=0,
+                    scenario_index=0, solver_config=scfg, device=device)
+    t0 = time.perf_counter()
+    TrajectoryTracker(base.config_mpc, base.config_robot, scfg,
+                      device=device)._warmup()
+    warm_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    base.run("mpc", predictor)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = spd.spd_solve.launches
+    syncs = engine.any_lane.syncs + engine.to_host.syncs
+    robot, _, intf, _ = base.episode
+    tracker = intf.traj_tracker
+    summary = base.results_summary()
+    steps = len(tracker.past_actions)
+    progress = (route_left(robot.path, robot.past_traj[0])
+                - route_left(robot.path, robot.state))
+    static = base.geo_map.processed_obstacle_list
+    static_hits = sum(metrics.check_collision(s, static, [])
+                      for s in robot.past_traj)
+    print(json.dumps({
+        "main_path": name, "scenario": 0, "steps": steps,
+        "warmup_s": warm_s, "run_s": run_s,
+        "solve_s_per_step": base.solve_time_list,
+        "predictor_ms_per_step": [1e3 * t for t in base.predict_time_list],
+        "escalations": tracker.escalation_count,
+        "converged_rate": summary.get("converged_rate"),
+        "statuses": tracker.solver_status_timelist,
+        "host_syncs_per_step": syncs / max(steps, 1),
+        "spd_launches": launches,
+        "spd_launches_per_step": launches / max(steps, 1),
+        "route_progress_m": progress, "static_collisions": static_hits,
+        "outcome": summary["outcomes"][-1]["outcome"]}), flush=True)
+    if steps != T:
+        raise AssertionError(f"{name}: the episode ended after {steps} of "
+                             f"{T} steps ({summary['outcomes'][-1]})")
+    if not np.isfinite(np.asarray(tracker.past_actions)).all():
+        raise AssertionError(f"{name}: a non-finite action")
+    if static_hits:
+        raise AssertionError(f"{name}: the robot entered a static polygon")
+    if not progress >= 0.1:
+        raise AssertionError(f"{name}: the robot came {progress:.3f} m "
+                             "nearer its goal along its route, under 0.1")
+    if launches <= 0:
+        raise AssertionError(f"{name} never launched spd_cholesky")
+    return launches
+
+
+def harness_paths(device) -> dict:
+    """Paths 5-6 and their card-vs-CPU check; returns kernel 1's launches
+    by path."""
+    from dyobav_tpu_torch.configs import SolverConfiguration
+
+    harness_reference_check(device)
+    return {
+        "harness[mpc+cvmp]": drive_harness_path(
+            "cvmp", SolverConfiguration(), HARNESS_STEPS, device),
+        "harness[mpc+mmp]": drive_harness_path(
+            "mmp", SolverConfiguration(**MMP_BUDGET), HARNESS_MMP_STEPS,
+            device)}
+
+
+def harness_child(results, device: str) -> None:
+    """Body of the process that drives the harness on `device` beside the
+    other paths (each step solves one robot, so the host, not the card,
+    sets its time): puts ("ok", launches by path) or ("error", traceback)
+    on `results`."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        results.put(("ok", harness_paths(torch.device(device))))
+    except BaseException:
+        results.put(("error", traceback.format_exc()))
+        raise
+
+
+def drive_paths(device):
+    """Paths 1-4 and their checks; returns kernel 1's launches by path and
+    kernel 2's launches."""
+    from dyobav_tpu_torch.configs import (CircularRobotSpecification,
+                                          MpcConfiguration,
+                                          SolverConfiguration)
+    from dyobav_tpu_torch.sim.harness import MainBase
+
+    cfg, robot, scfg = (MpcConfiguration(), CircularRobotSpecification(),
+                        SolverConfiguration())
+    launches = {"solve_batch_escalated": drive_solve_path(cfg, robot, scfg,
+                                                          device),
+                "build_batch_sim": drive_sim_path(cfg, robot, scfg)}
+    sim_reference_check(cfg, robot, scfg)
+    lanes_launches = drive_lanes_path(device)
+    base = MainBase(max_run_time_step=WTA_STEPS, evaluation=True, seed=0)
+    net = wta_net_check(base, device)
+    launches["build_batch_sim[wta]"] = drive_wta_sim_path(
+        cfg, robot, scfg, base, net, device)
+    wta_sim_reference_check(cfg, robot, scfg, base, net, device)
+    return launches, lanes_launches
+
+
 def main() -> int:
     import torch
 
@@ -783,12 +970,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from dyobav_tpu_torch.configs import (CircularRobotSpecification,
-                                          MpcConfiguration,
-                                          SolverConfiguration)
     from dyobav_tpu_torch.kernels import build
     from dyobav_tpu_torch.ops import spd, spd_lanes
-    from dyobav_tpu_torch.sim.harness import MainBase
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -818,8 +1001,9 @@ def main() -> int:
     # SIM_BATCH lanes, 4 rungs), its cold re-solve of the distressed lanes
     # (5 candidates x K_sim slots) and its step-0 cold pre-solve (SIM_BATCH
     # lanes); the neural sim's three stages likewise at WTA_BATCH lanes;
-    # the second kernel at the solve's 8192 systems, at its docstring's 512
-    # and at a ragged 200.  The sims' cold slots are sim/batch.py's
+    # the harness's one robot (5 candidates, 4 rungs); the second kernel
+    # at the solve's 8192 systems, at its docstring's 512 and at a ragged
+    # 200.  The sims' cold slots are sim/batch.py's
     # max(B // 2, min(B, 8), 1).
     K = max(BATCH // 16, min(BATCH, 16), 1)
     K_sim = max(SIM_BATCH // 2, min(SIM_BATCH, 8), 1)
@@ -830,7 +1014,7 @@ def main() -> int:
         spd.spd_solve_plain,
         [(BATCH, 4), (K, 4), (5 * SIM_BATCH, 4), (5 * K_sim, 4),
          (SIM_BATCH, 4), (5 * WTA_BATCH, 4), (5 * K_wta, 4),
-         (WTA_BATCH, 4)], device, PEAKS)
+         (WTA_BATCH, 4), (5, 4)], device, PEAKS)
     entry2 = check_kernel(
         "spd_lanes", "dyobav_tpu_torch/csrc/spd_lanes.cu",
         "docs/negative_results/pallas_linalg_lanes.py:30",
@@ -838,21 +1022,32 @@ def main() -> int:
         spd_lanes.batched_spd_solve_plain,
         [(LANES_BATCH,), (512,), (200,)], device, PEAKS)
 
-    cfg, robot, scfg = (MpcConfiguration(), CircularRobotSpecification(),
-                        SolverConfiguration())
-    solve_launches = drive_solve_path(cfg, robot, scfg, device)
-    sim_launches = drive_sim_path(cfg, robot, scfg)
-    sim_reference_check(cfg, robot, scfg)
-    lanes_launches = drive_lanes_path(device)
-    base = MainBase(max_run_time_step=WTA_STEPS, evaluation=True, seed=0)
-    net = wta_net_check(base, device)
-    wta_launches = drive_wta_sim_path(cfg, robot, scfg, base, net, device)
-    wta_sim_reference_check(cfg, robot, scfg, base, net, device)
+    # The harness's paths run in a second process beside the others (its
+    # launch counts are its own), started once the kernels are timed.
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    child = ctx.Process(target=harness_child, args=(results, "cuda:0"))
+    child.start()
+    try:
+        launches, lanes_launches = drive_paths(device)
+        try:
+            status, payload = results.get(timeout=HARNESS_TIMEOUT_S)
+        except queue.Empty:
+            raise AssertionError("the harness process gave no result in "
+                                 f"{HARNESS_TIMEOUT_S} s") from None
+        child.join(timeout=60)
+    finally:
+        if child.is_alive():
+            child.terminate()
+            child.join()
+    if status != "ok":
+        raise AssertionError(f"the harness process failed:\n{payload}")
+    if child.exitcode != 0:
+        raise AssertionError(f"the harness process exited {child.exitcode}")
+    launches.update(payload)
 
-    entry1["launches"] = solve_launches + sim_launches + wta_launches
-    entry1["launches_by_path"] = {"solve_batch_escalated": solve_launches,
-                                  "build_batch_sim": sim_launches,
-                                  "build_batch_sim[wta]": wta_launches}
+    entry1["launches"] = sum(launches.values())
+    entry1["launches_by_path"] = launches
     entry2["launches"] = lanes_launches
     entry2["launches_by_path"] = {"batched_spd_solve": lanes_launches}
     print(json.dumps({"kernels": [entry1, entry2]}), flush=True)

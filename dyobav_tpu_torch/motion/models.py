@@ -1,9 +1,15 @@
-"""Unicycle kinematics in PyTorch (L1), the port of `dyobav_tpu.motion.models`.
+"""Kinematic motion models in PyTorch (L1), the port of
+`dyobav_tpu.motion.models`.
 
-state = (x, y, theta), action = (v, omega).  The functions take one state
-and one action; batch them with `torch.func.vmap`.
+state = (x, y, theta); action = (v, omega) for the unicycle and
+(vx, vy, omega) for the omnidirectional model.  The functions take one
+state and one action; batch them with `torch.func.vmap`.  Each has a numpy
+twin for host-side callers (the simulation's agents), which `MotionModel`
+picks for a state that is not a tensor.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -27,6 +33,13 @@ def unicycle_step(state: torch.Tensor, action: torch.Tensor, ts: float,
     return state + ts * unicycle_derivative(state, action)
 
 
+def omnidirectional_step(state: torch.Tensor, action: torch.Tensor,
+                         ts: float) -> torch.Tensor:
+    """Holonomic model: state += ts * action
+    (`motion_model.omnidirectional_model`, motion_model.py:130-139)."""
+    return state + ts * action
+
+
 def unicycle_step_np(state, action, ts: float, rk4: bool = True):
     """Numpy twin of `unicycle_step` for host-side callers."""
     def d(s):
@@ -40,3 +53,49 @@ def unicycle_step_np(state, action, ts: float, rk4: bool = True):
         k4 = d(state + k3)
         return state + (k1 + 2.0 * k2 + 2.0 * k3 + k4) / 6.0
     return state + d(state)
+
+
+def omnidirectional_step_np(state, action, ts: float):
+    """Numpy twin of `omnidirectional_step` (host-side agents)."""
+    return state + ts * action
+
+
+class MotionModel:
+    """Callable carrying (state_dim, action_dim, ts), the reference's
+    `MotionModel` surface (motion_model.py:32-68)."""
+
+    def __init__(self, fn: Callable, state_dim: int, action_dim: int,
+                 ts: float, np_fn: Callable | None = None):
+        self.fn = fn
+        self.np_fn = np_fn
+        self.state_dim = state_dim
+        self.action_dim = action_dim
+        self.ts = ts
+
+    def __call__(self, state, action, ts: float | None = None):
+        ts = self.ts if ts is None else ts
+        # A host-side state (the simulation's agents) takes the numpy twin:
+        # one 3-element step is not worth a device round trip.
+        if self.np_fn is not None and not isinstance(state, torch.Tensor):
+            return self.np_fn(np.asarray(state, np.float64),
+                              np.asarray(action, np.float64), ts)
+        return self.fn(torch.as_tensor(state), torch.as_tensor(action), ts)
+
+    def zero_state(self):
+        return torch.zeros(self.state_dim)
+
+    def zero_action(self):
+        return torch.zeros(self.action_dim)
+
+
+class UnicycleModel(MotionModel):
+    def __init__(self, ts: float, rk4: bool = True):
+        super().__init__(
+            lambda s, a, t: unicycle_step(s, a, t, rk4=rk4), 3, 2, ts,
+            np_fn=lambda s, a, t: unicycle_step_np(s, a, t, rk4=rk4))
+
+
+class OmnidirectionalModel(MotionModel):
+    def __init__(self, ts: float):
+        super().__init__(omnidirectional_step, 3, 3, ts,
+                         np_fn=omnidirectional_step_np)

@@ -97,6 +97,16 @@ def any_lane(mask: torch.Tensor) -> bool:
 any_lane.syncs = 0
 
 
+def to_host(t: torch.Tensor):
+    """`t` as a numpy array, in one device-to-host copy (a host sync on the
+    card).  `to_host.syncs` counts them."""
+    to_host.syncs += 1
+    return t.cpu().numpy()
+
+
+to_host.syncs = 0
+
+
 def gather_slots(mask: torch.Tensor, K: int):
     """Static-size gather of the first K set lanes of `mask` in lane order,
     without a host sync (`jnp.nonzero(mask, size=K, fill_value=0)`).

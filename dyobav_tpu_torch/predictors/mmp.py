@@ -20,7 +20,7 @@ import torch
 from ..configs import WtaNetConfiguration
 from ..models.heatmap import pad_traj, traj_to_input_stack
 from ..models.wta_net import full_f32, load_checkpoint
-from ..ops.engine import resolve_device
+from ..ops.engine import resolve_device, to_host
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -101,7 +101,7 @@ class MmpInterface:
         """(B, 7, H, W) input stacks -> (B, num_hypos, dim_out) hypotheses
         as numpy, in full float32."""
         with torch.no_grad(), full_f32():
-            return self.net(images.to(self.device)).cpu().numpy()
+            return to_host(self.net(images.to(self.device)))
 
     def get_motion_prediction(self, input_traj: List[tuple],
                               ref_image: np.ndarray, pred_offset: int,

@@ -17,7 +17,6 @@ from dyobav_tpu_torch.convert import scenario_from_numpy
 from dyobav_tpu_torch.sim import harness as th
 from dyobav_tpu_torch.sim import scenarios as ts
 from dyobav_tpu_torch.sim.batch import Scenario, scenario_to_device
-from dyobav_tpu_torch.trackers.mpc_tracker import TrajectoryTracker
 
 DATA = os.path.join(os.path.dirname(__file__), "..", "data",
                     "warehouse_sim_original")
@@ -113,12 +112,15 @@ def test_scenario_moves_to_tensors(bases):
 
 
 def test_unported_parts_raise(bases):
+    """What is still not ported raises and names its ROADMAP item: the DWA
+    tracker and the Kalman predictor (item 9), the fleet (item 10); an
+    invalid scenario raises too."""
     tbase = bases[1]
-    for call in (tbase.run, tbase.run_once, tbase._prepare_agents):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call("mpc")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TrajectoryTracker(tbase.config_mpc, tbase.config_robot)
+    robot, _ = tbase._prepare_agents()
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tbase.run("dwa", "cvmp")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tbase._prepare_interfaces(robot, "kfmp", "mpc")
     with pytest.raises(NotImplementedError, match="item 10"):
         ts.random_fleet_scenarios(tbase, 2)
     with pytest.raises(ValueError, match="Invalid scenario"):
