@@ -40,6 +40,21 @@ just after:
    process (its own launch counts) beside paths 1-4, started once the
    kernels are timed.  Each fails on a non-finite action, a robot inside
    a static polygon, or a robot not 0.1 m nearer its goal along its route.
+   The same process then runs the paper's baselines: a whole episode of
+   `run("dwa", "cvmp")` on scenario 0 (`harness[dwa+cvmp]`, at most 120
+   steps), the DWA harness on the card against the port's CPU run for
+   DWA_REF_STEPS steps (`harness_dwa_card_vs_cpu`), `run("dwa", "kfmp")`
+   for HARNESS_DWA_STEPS steps (`harness[dwa+kfmp]`) and `run("mpc",
+   "kfmp")` at the shipped budget for HARNESS_KFMP_STEPS steps
+   (`harness[mpc+kfmp]`, kernel 1 at (5, 4)), with the same checks;
+6. the PANOC method: `build_mpc_solver(..., SolverConfiguration(
+   max_inner_iters=300, max_outer_iters=10, inner_iters_later=150),
+   method="panoc").solve_batch_escalated` once on path 1's B=2048 step-0
+   problems (`solve_batch_escalated[panoc]`), after its card-vs-CPU check
+   on PANOC_REF_BATCH of them at a 5-iteration budget.  PANOC solves no
+   linear system: it runs no hand-written kernel, and the script fails if
+   it launches one.  Its ~1,650 eager iterations run in a third process
+   beside the others.
 
 Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
 cache) and one call at a time after a write that evicts the L2 cache
@@ -95,7 +110,15 @@ HARNESS_REF_BUDGET = dict(max_inner_iters=3, max_outer_iters=1,
                           inner_iters_later=1, newton_substeps=1,
                           cold_profile=(6, 2, 3, 1, 10.0))
 MMP_BUDGET = dict(cold_profile=(30, 10, 10, 1, 10.0))   # sim/entry.py's
-HARNESS_TIMEOUT_S = 600   # wait for the harness process after paths 1-4
+HARNESS_DWA_MAX_STEPS = 120   # harness[dwa+cvmp]: a whole episode
+DWA_REF_STEPS = 10        # steps of harness_dwa_card_vs_cpu
+HARNESS_DWA_STEPS = 10    # control steps of harness[dwa+kfmp]
+HARNESS_KFMP_STEPS = 3    # control steps of harness[mpc+kfmp]
+PANOC_BUDGET = dict(max_inner_iters=300, max_outer_iters=10,
+                    inner_iters_later=150)   # tests/test_panoc.py's OpEn scale
+PANOC_REF_BATCH = 8       # problems of the PANOC card-vs-CPU check
+PANOC_REF_BUDGET = dict(max_inner_iters=5, max_outer_iters=1)
+CHILD_TIMEOUT_S = 600     # wait for the other processes after paths 1-4
 
 
 def card_line() -> str:
@@ -840,16 +863,53 @@ def harness_reference_check(device):
         raise AssertionError("card and CPU runs of the harness disagree")
 
 
-def route_left(path, state) -> float:
-    """Distance from `state` to the goal along the route: to the route's
-    first waypoint, then along its legs."""
-    pts = np.array([state[:2]] + [p[:2] for p in path], dtype=np.float64)
-    return float(np.linalg.norm(np.diff(pts, axis=0), axis=1).sum())
+def route_progress(path, start, state) -> float:
+    """Arc length along the route (`start`, then the route's waypoints) from
+    `start` to the route's point nearest `state`: how far the robot came
+    along its route, a whole episode's included."""
+    pts = np.array([start[:2]] + [p[:2] for p in path], dtype=np.float64)
+    seg = np.diff(pts, axis=0)
+    lens = np.linalg.norm(seg, axis=1)
+    t = np.clip(np.einsum("ij,ij->i", np.asarray(state[:2]) - pts[:-1], seg)
+                / np.maximum(lens ** 2, 1e-12), 0.0, 1.0)
+    dist = np.linalg.norm(pts[:-1] + t[:, None] * seg - state[:2], axis=1)
+    k = int(np.argmin(dist))
+    return float(lens[:k].sum() + t[k] * lens[k])
 
 
-def drive_harness_path(predictor, scfg, T, device):
-    """Paths 5-6: `MainBase.run("mpc", predictor)` on scenario 0 for T
-    steps, the bundles warmed first as a process's first tracker does.
+def harness_dwa_reference_check(device):
+    """Phase harness_dwa_card_vs_cpu: the DWA harness on the card against
+    the port's own CPU run, scenario 0 with the cvmp predictor, seed 1."""
+    from dyobav_tpu_torch.sim.harness import MainBase
+
+    T = DWA_REF_STEPS
+    out = {}
+    for dev in (device, "cpu"):
+        base = MainBase(max_run_time_step=T, evaluation=True, seed=1,
+                        scenario_index=0, device=dev)
+        robot, humans = base._prepare_agents()
+        intf, pred = base._prepare_interfaces(robot, "cvmp", "dwa")
+        t0 = time.perf_counter()
+        for _ in range(T):
+            base.run_one_step(robot, humans, intf, pred)
+        out[dev] = (np.array([s[:2] for s in robot.past_traj[1:]]),
+                    np.array(intf.traj_tracker.past_actions),
+                    time.perf_counter() - t0)
+    (sg, ag, tg), (sc, ac, tc) = out[device], out["cpu"]
+    dev_m = np.abs(sg - sc).max(axis=1)                   # (T,)
+    print(json.dumps({
+        "phase": "harness_dwa_card_vs_cpu", "scenario": 0, "steps": T,
+        "robot_dev_m_per_step": dev_m.tolist(),
+        "action_dev_max": float(np.abs(ag - ac).max()),
+        "card_s": tg, "cpu_s": tc}), flush=True)
+    if not (dev_m.shape == (T,) and dev_m.max() <= 1e-4):
+        raise AssertionError("card and CPU runs of the DWA harness disagree")
+
+
+def drive_harness_path(tracker, predictor, scfg, T, device, whole=False):
+    """`MainBase(scenario_index=0, evaluation=True).run(tracker,
+    predictor)` for T steps (or, `whole`, an episode of at most T steps),
+    the MPC bundles warmed first as a process's first tracker does.
     Returns kernel 1's launches on the run."""
     import torch
 
@@ -858,26 +918,27 @@ def drive_harness_path(predictor, scfg, T, device):
     from dyobav_tpu_torch.sim.harness import MainBase
     from dyobav_tpu_torch.trackers.mpc_tracker import TrajectoryTracker
 
-    name = f"harness[mpc+{predictor}]"
+    name = f"harness[{tracker}+{predictor}]"
     base = MainBase(max_run_time_step=T, evaluation=True, seed=0,
                     scenario_index=0, solver_config=scfg, device=device)
     t0 = time.perf_counter()
-    TrajectoryTracker(base.config_mpc, base.config_robot, scfg,
-                      device=device)._warmup()
+    if tracker == "mpc":
+        TrajectoryTracker(base.config_mpc, base.config_robot, scfg,
+                          device=device)._warmup()
     warm_s = time.perf_counter() - t0
     reset_counts()
     t0 = time.perf_counter()
-    base.run("mpc", predictor)
+    base.run(tracker, predictor)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = spd.spd_solve.launches
     syncs = engine.any_lane.syncs + engine.to_host.syncs
     robot, _, intf, _ = base.episode
-    tracker = intf.traj_tracker
+    tracker_ = intf.traj_tracker
     summary = base.results_summary()
-    steps = len(tracker.past_actions)
-    progress = (route_left(robot.path, robot.past_traj[0])
-                - route_left(robot.path, robot.state))
+    outcome = summary["outcomes"][-1]
+    steps = len(tracker_.past_actions)
+    progress = route_progress(robot.path, robot.past_traj[0], robot.state)
     static = base.geo_map.processed_obstacle_list
     static_hits = sum(metrics.check_collision(s, static, [])
                       for s in robot.past_traj)
@@ -885,58 +946,152 @@ def drive_harness_path(predictor, scfg, T, device):
         "main_path": name, "scenario": 0, "steps": steps,
         "warmup_s": warm_s, "run_s": run_s,
         "solve_s_per_step": base.solve_time_list,
+        "solve_ms_mean": 1e3 * float(np.mean(base.solve_time_list)),
         "predictor_ms_per_step": [1e3 * t for t in base.predict_time_list],
-        "escalations": tracker.escalation_count,
+        "escalations": outcome["escalations"],
         "converged_rate": summary.get("converged_rate"),
-        "statuses": tracker.solver_status_timelist,
+        "statuses": getattr(tracker_, "solver_status_timelist", None),
         "host_syncs_per_step": syncs / max(steps, 1),
         "spd_launches": launches,
         "spd_launches_per_step": launches / max(steps, 1),
         "route_progress_m": progress, "static_collisions": static_hits,
-        "outcome": summary["outcomes"][-1]["outcome"]}), flush=True)
-    if steps != T:
+        "outcome": outcome["outcome"],
+        **{k: summary[k] for k in ("clearance_mean", "clearance_dyn_mean",
+                                   "deviation_mean", "deviation_max")
+           if k in summary}}), flush=True)
+    if whole:
+        if outcome["outcome"] == "timeout" and steps != T:
+            raise AssertionError(f"{name}: the episode stopped after {steps}"
+                                 " steps without an outcome")
+    elif steps != T:
         raise AssertionError(f"{name}: the episode ended after {steps} of "
-                             f"{T} steps ({summary['outcomes'][-1]})")
-    if not np.isfinite(np.asarray(tracker.past_actions)).all():
+                             f"{T} steps ({outcome})")
+    if not np.isfinite(np.asarray(tracker_.past_actions)).all():
         raise AssertionError(f"{name}: a non-finite action")
     if static_hits:
         raise AssertionError(f"{name}: the robot entered a static polygon")
     if not progress >= 0.1:
         raise AssertionError(f"{name}: the robot came {progress:.3f} m "
                              "nearer its goal along its route, under 0.1")
-    if launches <= 0:
+    if tracker == "mpc" and launches <= 0:
         raise AssertionError(f"{name} never launched spd_cholesky")
+    if tracker == "dwa" and launches != 0:
+        raise AssertionError(f"{name}: the DWA launched spd_cholesky")
     return launches
 
 
 def harness_paths(device) -> dict:
-    """Paths 5-6 and their card-vs-CPU check; returns kernel 1's launches
-    by path."""
+    """Path 5 and its card-vs-CPU checks; returns kernel 1's launches by
+    the harness's MPC paths."""
     from dyobav_tpu_torch.configs import SolverConfiguration
 
     harness_reference_check(device)
-    return {
+    launches = {
         "harness[mpc+cvmp]": drive_harness_path(
-            "cvmp", SolverConfiguration(), HARNESS_STEPS, device),
+            "mpc", "cvmp", SolverConfiguration(), HARNESS_STEPS, device),
         "harness[mpc+mmp]": drive_harness_path(
-            "mmp", SolverConfiguration(**MMP_BUDGET), HARNESS_MMP_STEPS,
-            device)}
+            "mpc", "mmp", SolverConfiguration(**MMP_BUDGET),
+            HARNESS_MMP_STEPS, device)}
+    drive_harness_path("dwa", "cvmp", None, HARNESS_DWA_MAX_STEPS, device,
+                       whole=True)
+    harness_dwa_reference_check(device)
+    drive_harness_path("dwa", "kfmp", None, HARNESS_DWA_STEPS, device)
+    launches["harness[mpc+kfmp]"] = drive_harness_path(
+        "mpc", "kfmp", SolverConfiguration(), HARNESS_KFMP_STEPS, device)
+    return launches
 
 
-def harness_child(results, device: str) -> None:
-    """Body of the process that drives the harness on `device` beside the
-    other paths (each step solves one robot, so the host, not the card,
-    sets its time): puts ("ok", launches by path) or ("error", traceback)
-    on `results`."""
+def panoc_reference_check(cfg, robot, Z, U0, device):
+    """The PANOC solve on the card against the port's CPU run on the first
+    PANOC_REF_BATCH problems, at a 5-iteration budget: over longer budgets
+    float32 PANOC parts at knife-edge accept tests between any two
+    summation orders (tests/test_torch_panoc.py)."""
+    import torch
+
+    from dyobav_tpu_torch.configs import SolverConfiguration
+    from dyobav_tpu_torch.ops.engine import build_mpc_solver
+
+    n = PANOC_REF_BATCH
+    scfg = SolverConfiguration(**PANOC_REF_BUDGET)
+    out = {}
+    for dev in (device, "cpu"):
+        sol = build_mpc_solver(cfg, robot, scfg, method="panoc",
+                               device=dev).solve_batch(Z[:n], U0[:n])
+        out[dev] = (sol.u.cpu().numpy(), sol.exit_ok.cpu().numpy())
+    (ug, eg), (uc, ec) = out[device], out["cpu"]
+    du = float(np.abs(ug - uc).max())
+    print(json.dumps({"phase": "panoc_card_vs_cpu", "batch": n,
+                      "budget": PANOC_REF_BUDGET, "u_dev_max": du,
+                      "exit_ok_equal": bool((eg == ec).all())}), flush=True)
+    if not (du <= 1e-3 and (eg == ec).all()):
+        raise AssertionError("card and CPU runs of PANOC disagree")
+
+
+def drive_panoc_path(device) -> int:
+    """Path 6: `solve_batch_escalated` of the PANOC method on the B=2048
+    step-0 problems, once.  Returns kernel 1's launches on it (0)."""
+    import torch
+
+    from dyobav_tpu_torch.configs import (CircularRobotSpecification,
+                                          MpcConfiguration,
+                                          SolverConfiguration)
+    from dyobav_tpu_torch.ops import costs, engine, spd
+    from dyobav_tpu_torch.ops.engine import build_mpc_solver
+
+    cfg, robot = MpcConfiguration(), CircularRobotSpecification()
+    make_Z, states, u_prev, U0 = make_problems(cfg, BATCH)
+    Z = make_Z(states, u_prev, 0)
+    panoc_reference_check(cfg, robot, Z, U0, device)
+    scfg = SolverConfiguration(**PANOC_BUDGET)
+    bundle = build_mpc_solver(cfg, robot, scfg, method="panoc")
+    reset_counts()
+    t0 = time.perf_counter()
+    sol = bundle.solve_batch_escalated(Z, U0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = spd.spd_solve.launches
+    syncs = engine.any_lane.syncs + engine.to_host.syncs
+    u_lo, u_hi = costs.action_bounds(cfg, robot, device=device)
+    excess = float(torch.maximum(u_lo - sol.u, sol.u - u_hi).max())
+    infeas = sol.infeasibility.cpu().numpy()
+    print(json.dumps({
+        "main_path": "solve_batch_escalated[panoc]", "batch": BATCH,
+        "budget": PANOC_BUDGET, "wall_s": wall,
+        "exit_ok": float(sol.exit_ok.float().mean()),
+        "infeas_p95": float(np.percentile(infeas, 95)),
+        "residual_p50": float(sol.residual.median()),
+        "host_syncs": syncs, "spd_launches": launches,
+        "bound_excess_max": excess}), flush=True)
+    for name, val in (("u", sol.u), ("cost", sol.cost),
+                      ("pred_states", sol.pred_states)):
+        if not bool(torch.isfinite(val).all()):
+            raise AssertionError(f"PANOC path: non-finite {name}")
+    if tuple(sol.u.shape) != (BATCH, cfg.nu * cfg.N_hor):
+        raise AssertionError(f"PANOC path: u of shape {tuple(sol.u.shape)}")
+    if excess > 1e-5:
+        raise AssertionError(f"PANOC path: a bound violated by {excess}")
+    if launches != 0:
+        raise AssertionError("PANOC path launched spd_cholesky")
+    return launches
+
+
+CHILD_PHASES = {"harness": harness_paths, "panoc": drive_panoc_path}
+
+
+def child_main(results, name: str, device: str) -> None:
+    """Body of a process that drives CHILD_PHASES[name] on `device` beside
+    the other paths (each step of the harness solves one robot and PANOC
+    iterates eagerly, so the host, not the card, sets their time): puts
+    (name, "ok", result) or (name, "error", traceback) on `results`."""
     import torch
 
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        results.put(("ok", harness_paths(torch.device(device))))
+        results.put((name, "ok", CHILD_PHASES[name](torch.device(device))))
     except BaseException:
-        results.put(("error", traceback.format_exc()))
+        results.put((name, "error", traceback.format_exc()))
         raise
 
 
@@ -1022,29 +1177,39 @@ def main() -> int:
         spd_lanes.batched_spd_solve_plain,
         [(LANES_BATCH,), (512,), (200,)], device, PEAKS)
 
-    # The harness's paths run in a second process beside the others (its
-    # launch counts are its own), started once the kernels are timed.
+    # The harness's paths and PANOC's run in two more processes beside the
+    # others (their launch counts are their own), started once the kernels
+    # are timed.
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    child = ctx.Process(target=harness_child, args=(results, "cuda:0"))
-    child.start()
+    children = [ctx.Process(target=child_main, args=(results, name, "cuda:0"))
+                for name in CHILD_PHASES]
+    for child in children:
+        child.start()
+    payloads = {}
     try:
         launches, lanes_launches = drive_paths(device)
-        try:
-            status, payload = results.get(timeout=HARNESS_TIMEOUT_S)
-        except queue.Empty:
-            raise AssertionError("the harness process gave no result in "
-                                 f"{HARNESS_TIMEOUT_S} s") from None
-        child.join(timeout=60)
+        for _ in children:
+            try:
+                name, status, payload = results.get(timeout=CHILD_TIMEOUT_S)
+            except queue.Empty:
+                raise AssertionError(
+                    "a child process gave no result in "
+                    f"{CHILD_TIMEOUT_S} s") from None
+            if status != "ok":
+                raise AssertionError(f"the {name} process failed:\n{payload}")
+            payloads[name] = payload
+        for child in children:
+            child.join(timeout=60)
     finally:
-        if child.is_alive():
-            child.terminate()
-            child.join()
-    if status != "ok":
-        raise AssertionError(f"the harness process failed:\n{payload}")
-    if child.exitcode != 0:
-        raise AssertionError(f"the harness process exited {child.exitcode}")
-    launches.update(payload)
+        for child in children:
+            if child.is_alive():
+                child.terminate()
+                child.join()
+    for child in children:
+        if child.exitcode != 0:
+            raise AssertionError(f"a child process exited {child.exitcode}")
+    launches.update(payloads["harness"])
 
     entry1["launches"] = sum(launches.values())
     entry1["launches_by_path"] = launches

@@ -5,12 +5,15 @@ the JAX package's module paths and names so each counterpart is easy to
 find, imports `torch` and numpy (never JAX, never `dyobav_tpu`), and runs
 its entry points on a CUDA device unless the caller passes `device="cpu"`.
 
-Ported so far (the batched NMPC solve and the closed-loop batched
-simulation with the constant-velocity or the SWTA neural predictor):
+Ported so far (the batched NMPC solve, the closed-loop batched simulation
+with the constant-velocity or the SWTA neural predictor, the per-episode
+harness with every tracker and predictor, and the PANOC method):
     configs           L0  MpcConfiguration, CircularRobotSpecification,
                           SolverConfiguration, WarehouseSimConfiguration,
-                          WtaNetConfiguration
-    motion.models     L1  unicycle RK4 step
+                          WtaNetConfiguration, DwaConfiguration
+    motion.models     L1  unicycle and omnidirectional steps, MotionModel
+    motion.kalman     L1  Kalman filter and its state spaces
+    motion.agents     L1  Human, Robot
     utils.geometry    L1  host-side polygon geometry (numpy)
     maps.*            L2  PGM and PNG readers, blobs, occupancy /
                           geometric maps, transforms, navigation graph (no
@@ -23,13 +26,16 @@ simulation with the constant-velocity or the SWTA neural predictor):
     ops.spd_lanes     L3  left-looking batched SPD solve, an entry point of
                           its own (CUDA kernel csrc/spd_lanes.cu)
     ops.newton        L3  ALM Newton solver (block Hessian, fused loop)
+    ops.panoc         L3  ALM PANOC solver (L-BFGS, FBE line search)
     ops.engine        L3  build_mpc_solver, solve_batch_escalated
+    ops.dwa           L3  batched DWA grid search
     ops.cluster       L3  on-device cluster-Gaussian fit of hypotheses
-    predictors.mmp    L4  ObstacleSnapper, MmpInterface
-    trackers.mpc_tracker  TrajectoryTracker.get_ref_traj only
-    interfaces.map_interface  L4  map files -> map objects
-    sim.harness       L5  scenario presets, MainBase map loading,
-                          ref_map
+    predictors.*      L4  cvmp, kfmp, mmp (ObstacleSnapper, MmpInterface)
+    trackers.*        L4  MPC and DWA TrajectoryTracker
+    interfaces.*      L4  map files -> map objects; MPC and DWA interfaces
+    sim.harness       L5  scenario presets, MainBase (episodes, metrics)
+    sim.metrics       L5  clearance, smoothness, deviation, collisions
+    sim.entry         L5  python -m dyobav_tpu_torch.sim {demo,eval}
     sim.scenarios     L5  build_scenario, random_scenarios
     sim.batch         L5  build_lane_solvers, build_batch_sim,
                           make_wta_predictor

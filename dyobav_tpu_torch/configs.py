@@ -1,10 +1,11 @@
 """Typed configuration for the PyTorch port (L0).
 
 A copy of the configuration families the NMPC solve, the batched
-simulation and the SWTA predictor need, with the same field names and
-defaults as `dyobav_tpu.configs` (but for `WtaNetConfiguration.model_path`,
-which names the torch checkpoint), so the reference YAML files and the JAX
-package's `to_dict()` output load unchanged.  The port
+simulation, the DWA tracker and the SWTA predictor need, with the same
+field names and defaults as `dyobav_tpu.configs` (but for
+`WtaNetConfiguration.model_path`, which names the torch checkpoint), so the
+reference YAML files and the JAX package's `to_dict()` output load
+unchanged.  The port
 keeps its own copy rather than importing the JAX package's module.
 `yaml` is imported only by the functions that read or write YAML.
 """
@@ -142,6 +143,25 @@ class MpcConfiguration(_YamlConfig):
             + self.N_hor                                 # static obstacle weights
             + self.N_hor                                 # dynamic obstacle weights
         )
+
+
+@dataclass(frozen=True)
+class DwaConfiguration(_YamlConfig):
+    """Dynamic-window-approach tracker config (ref `configs.py:179-199`)."""
+
+    ts: float = 0.2
+    N_hor: int = 20
+    ns: int = 3
+    nu: int = 2
+    vel_resolution: float = 0.1
+    ang_resolution: float = 0.1
+    stuck_threshold: float = 0.001
+    q_goal_dir: float = 0.05
+    q_ref_deviation: float = 0.1
+    q_speed: float = 1.0
+    q_stc_obstacle: float = 2.0
+    q_dyn_obstacle: float = 2.0
+    q_social: float = 0.1
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,7 @@ JAX package.
 
     params_from_numpy(p_jax_as_numpy, device)  -> ops.params.MpcParams
     config_from_dict(SolverConfiguration, d)   -> configs.SolverConfiguration
+    config_from_dict(DwaConfiguration, d)      -> configs.DwaConfiguration
     scenario_from_numpy(sc_jax_as_numpy, device) -> sim.batch.Scenario
     wta_state_dict_from_flax(variables_as_numpy) -> models.wta_net state_dict
 """

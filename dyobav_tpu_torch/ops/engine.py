@@ -22,6 +22,7 @@ from ..configs import (CircularRobotSpecification, MpcConfiguration,
                        SolverConfiguration)
 from . import costs
 from .newton import make_alm_newton_solver
+from .panoc import make_panoc_solver
 from .params import unpack
 
 
@@ -179,21 +180,21 @@ def build_mpc_solver(
     """Construct the batched NMPC solve for one (MPC config, robot spec)
     pair on one device.
 
-    method: "newton" (the dense-Hessian ALM of `ops.newton`); "panoc" is
-    not ported yet.  Bundles are memoized on the full configuration and
-    the device.
+    method: "newton" (the dense-Hessian ALM of `ops.newton`, the default)
+    or "panoc" (the first-order L-BFGS PANOC of `ops.panoc`), for the warm
+    solve and every escalation stage alike.  Bundles are memoized on the
+    full configuration and the device.
     """
-    if method != "newton":
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet; only 'newton' is "
-            "(ROADMAP.md, queue A item 9)")
+    if method not in ("newton", "panoc"):
+        raise ValueError(f"unknown method {method!r}")
     dev = resolve_device(device)
     key = repr((cfg, robot, solver_cfg, dtype, method, str(dev)))
     cached = _BUNDLE_CACHE.get(key)
     if cached is not None:
         return cached
     _check_cold_safety(solver_cfg)
-    bundle = _build_mpc_solver_uncached(cfg, robot, solver_cfg, dtype, dev)
+    bundle = _build_mpc_solver_uncached(cfg, robot, solver_cfg, dtype,
+                                        method, dev)
     _BUNDLE_CACHE[key] = bundle
     return bundle
 
@@ -222,7 +223,7 @@ def _check_cold_safety(scfg: SolverConfiguration | None) -> None:
         _COLD_WARNED = True
 
 
-def _build_mpc_solver_uncached(cfg, robot, solver_cfg, dtype,
+def _build_mpc_solver_uncached(cfg, robot, solver_cfg, dtype, method: str,
                                device: torch.device) -> MpcSolverBundle:
     scfg = solver_cfg or SolverConfiguration()
     if scfg.dtype is not None:
@@ -247,12 +248,18 @@ def _build_mpc_solver_uncached(cfg, robot, solver_cfg, dtype,
         return torch.as_tensor(x, dtype=dtype, device=device)
 
     def make_batch_solve(stage_cfg):
-        newton = make_alm_newton_solver(obj, u_lo, u_hi, c_lo, c_hi,
-                                        stage_cfg, split=split)
+        # The split objective feeds Newton's block Hessian; PANOC needs
+        # only the merit's gradient.
+        if method == "newton":
+            solver = make_alm_newton_solver(obj, u_lo, u_hi, c_lo, c_hi,
+                                            stage_cfg, split=split)
+        else:
+            solver = make_panoc_solver(obj, u_lo, u_hi, c_lo, c_hi,
+                                       stage_cfg)
 
         def solve_batch(Z, U0) -> MpcSolve:
             P = unpack(as_input(Z), cfg)
-            res = newton(as_input(U0), P)
+            res = solver(as_input(U0), P)
             return MpcSolve(
                 u=res.u, cost=res.cost, pred_states=pred_states(res.u, P),
                 exit_ok=res.converged, infeasibility=res.infeasibility,
@@ -274,6 +281,8 @@ def _build_mpc_solver_uncached(cfg, robot, solver_cfg, dtype,
     # fail the convergence test (or sit in the residual band) are gathered
     # into K static slots, re-solved with each ladder stage's budget and
     # merged back where the re-solve converged (cost-gated for band lanes).
+    # As in the JAX engine, the band's `escalation_residual_tol` applies to
+    # PANOC's fixed-point residual too, though its scale is another.
     solve_batch_escalated = None
     if scfg.cold_profile:
         ladder, slots = escalation_ladder(scfg)

@@ -4,11 +4,11 @@
 
     python -m dyobav_tpu_torch.sim demo --predictor cvmp
     python -m dyobav_tpu_torch.sim eval --scenario 0 --runs 1 --json
+    python -m dyobav_tpu_torch.sim eval --tracker dwa --predictor kfmp
 
 It runs on the current CUDA device and raises without one; `--device cpu`
-asks for the CPU.  The DWA tracker, the Kalman predictor (ROADMAP.md, queue
-A item 9) and the live plot (`--plot`, `--save-plot`; item 8b) are not
-ported yet and raise NotImplementedError.
+asks for the CPU.  The live plot (`--plot`, `--save-plot`; ROADMAP.md,
+queue A item 8b) is not ported yet and raises NotImplementedError.
 """
 from __future__ import annotations
 

@@ -7,11 +7,11 @@ and the episode loop with headless metric aggregation.  The batched
 simulation's scenario constructors use only `scenario(index)` and the map
 loading of `MainBase.__init__`.
 
-The solves (and the SWTA net of the mmp predictor) run on `device`: None
-resolves to the current CUDA device when the interfaces are prepared and
-raises without one; pass `device="cpu"` to run on the CPU.  The DWA tracker
-and the Kalman predictor are not ported yet and raise NotImplementedError
-(ROADMAP.md, queue A item 9).
+The trackers (the MPC solves or the DWA search) and the SWTA net of the
+mmp predictor run on `device`: None resolves to the current CUDA device
+when the interfaces are prepared and raises without one; pass
+`device="cpu"` to run on the CPU.  The cvmp and kfmp predictors run on the
+host.
 """
 from __future__ import annotations
 
@@ -19,12 +19,14 @@ import math
 import os
 import random
 import timeit
-from typing import List, Tuple
+from typing import List, Tuple, Union
 
 import numpy as np
 
-from ..configs import (CircularRobotSpecification, MpcConfiguration,
-                       SolverConfiguration, WarehouseSimConfiguration)
+from ..configs import (CircularRobotSpecification, DwaConfiguration,
+                       MpcConfiguration, SolverConfiguration,
+                       WarehouseSimConfiguration)
+from ..interfaces.dwa_interface import DwaInterface
 from ..interfaces.map_interface import MapInterface
 from ..interfaces.mpc_interface import MpcInterface
 from ..maps.png import read_png
@@ -33,6 +35,7 @@ from ..motion.agents import Human, Robot
 from ..ops.cluster import fit_cluster2gaussian, fit_dbscan_np
 from ..ops.engine import resolve_device
 from ..predictors.cvmp import CvmpInterface
+from ..predictors.kfmp import KfmpInterface
 from . import metrics
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -65,6 +68,7 @@ class MainBase:
                  sim_config: WarehouseSimConfiguration | None = None,
                  config_mpc: MpcConfiguration | None = None,
                  config_robot: CircularRobotSpecification | None = None,
+                 config_dwa: DwaConfiguration | None = None,
                  solver_config: SolverConfiguration | None = None,
                  mmp_checkpoint: str | None = None,
                  verbose: bool = False, device=None):
@@ -82,6 +86,7 @@ class MainBase:
         self.sim_config = sim_config or WarehouseSimConfiguration()
         self.config_mpc = config_mpc or MpcConfiguration()
         self.config_robot = config_robot or CircularRobotSpecification()
+        self.config_dwa = config_dwa or DwaConfiguration()
         self.solver_config = solver_config
 
         self.data_dir = data_dir or os.path.join(REPO_ROOT, "data",
@@ -159,22 +164,25 @@ class MainBase:
                             tracker_type: str):
         """Build only what the requested (tracker, predictor) pair needs, on
         the harness's device."""
-        if tracker_type == "dwa" or predictor_type == "kfmp":
-            part = ("the DWA tracker" if tracker_type == "dwa"
-                    else "the Kalman predictor (kfmp)")
-            raise NotImplementedError(
-                f"{part} is not ported yet (ROADMAP.md, queue A item 9)")
-        if tracker_type != "mpc":
+        if tracker_type not in ("mpc", "dwa"):
             raise ValueError("Tracker type is not supported.")
         device = resolve_device(self.device)
-        mpc_intf = MpcInterface(self.config_mpc, robot.state, self.geo_map,
-                                robot_config=self.config_robot,
-                                solver_config=self.solver_config,
-                                verbose=self.vb, device=device)
-        mpc_intf.update_global_path(robot.path)
+        if tracker_type == "mpc":
+            tracker = MpcInterface(self.config_mpc, robot.state, self.geo_map,
+                                   robot_config=self.config_robot,
+                                   solver_config=self.solver_config,
+                                   verbose=self.vb, device=device)
+        else:
+            tracker = DwaInterface(self.config_dwa, robot.state, self.geo_map,
+                                   robot_config=self.config_robot,
+                                   verbose=self.vb, device=device)
+        tracker.update_global_path(robot.path)
 
         predictor = None
-        if predictor_type == "cvmp":
+        if predictor_type == "kfmp":
+            predictor = KfmpInterface(self.config_mpc, Q=np.eye(4),
+                                      R=np.eye(2))
+        elif predictor_type == "cvmp":
             predictor = CvmpInterface(self.config_mpc)
         elif predictor_type == "mmp":
             from ..predictors.mmp import MmpInterface
@@ -182,11 +190,11 @@ class MainBase:
                                      device=device)
         elif predictor_type is not None:
             raise ValueError("Predictor type is not supported.")
-        return mpc_intf, predictor
+        return tracker, predictor
 
     # ------------------------------------------------------------- prediction
     def run_baseline_prediction(self, interface, human_list: List[Human]):
-        """CV predictor fan-out over humans (main_base.py:210-264)."""
+        """KF/CV predictor fan-out over humans (main_base.py:210-264)."""
         curr_mu = [h.state[:2].tolist() for h in human_list]
         curr_std = [[self.HUMAN_SIZE, self.HUMAN_SIZE] for _ in human_list]
         mu_list_list = None
@@ -238,20 +246,26 @@ class MainBase:
 
     # ------------------------------------------------------------------- step
     def run_one_step(self, robot: Robot, human_list: List[Human],
-                     tracker_interface: MpcInterface,
+                     tracker_interface: Union[MpcInterface, DwaInterface],
                      predictor_interface=None, verbose: bool = False):
         """One simulation step (main_base.py:267-346)."""
         mmp_start = timeit.default_timer()
         hypos_clusters_list = None
+        is_mpc = isinstance(tracker_interface, MpcInterface)
         if predictor_interface is None:
             # No predictor: humans enter as fixed-position obstacles (the
             # reference feeds raw states here, which its MPC path cannot
-            # consume; normalized to the tracker's expected shape).
-            r = self.HUMAN_SIZE
-            dyn_obs_list = [[[h.state[0], h.state[1], r, r, 0, 1]]
-                            * (self.config_mpc.N_hor + 1) for h in human_list]
+            # consume; normalized to the MPC tracker's expected shape).  The
+            # DWA takes their flat positions.
+            if is_mpc:
+                r = self.HUMAN_SIZE
+                dyn_obs_list = [[[h.state[0], h.state[1], r, r, 0, 1]]
+                                * (self.config_mpc.N_hor + 1)
+                                for h in human_list]
+            else:
+                dyn_obs_list = [h.state[:2].tolist() for h in human_list]
             mu_list_list = std_list_list = None
-        elif isinstance(predictor_interface, CvmpInterface):
+        elif isinstance(predictor_interface, (KfmpInterface, CvmpInterface)):
             mu_list_list, std_list_list = self.run_baseline_prediction(
                 predictor_interface, human_list)
         else:
@@ -260,7 +274,7 @@ class MainBase:
         mmp_time = timeit.default_timer() - mmp_start
         self._last_predict_time = mmp_time
 
-        if predictor_interface is not None:
+        if predictor_interface is not None and is_mpc:
             n_obs = max(len(m) for m in mu_list_list)
             dyn_obs_list = [[[0, 0, 0, 0, 0, 1]] * (self.config_mpc.N_hor + 1)
                             for _ in range(n_obs)]
@@ -268,13 +282,24 @@ class MainBase:
                                                  std_list_list)):
                 for Nn, (mu, std) in enumerate(zip(mus, stds)):
                     dyn_obs_list[Nn][Tt] = [mu[0], mu[1], std[0], std[1], 0, 1]
+        elif predictor_interface is not None:
+            # The DWA scores its rollout against the predicted positions of
+            # every step.
+            dyn_obs_list = mu_list_list
 
         tracker_interface.set_current_state(robot.state)
         start = timeit.default_timer()
-        actions, pred_states, cost, the_obs_list, current_refs = \
-            tracker_interface.run_step("work", dyn_obs_list, map_updated=True)
-        action = actions[0]
-        others = [current_refs]
+        if is_mpc:
+            actions, pred_states, cost, the_obs_list, current_refs = \
+                tracker_interface.run_step("work", dyn_obs_list,
+                                           map_updated=True)
+            action = actions[0]
+            others = [current_refs]
+        else:
+            the_obs_list = None
+            action, pred_states, cost, all_traj, ok_traj, ok_cost = \
+                tracker_interface.run_step("work", dyn_obs_list)
+            others = [all_traj, ok_traj, ok_cost]
         solve_time = timeit.default_timer() - start
 
         if action[0] < 0:          # no-backward safety override (:320-321)
@@ -343,19 +368,21 @@ class MainBase:
         if not complete and not collision:
             self.collision_results.append(True)     # timeout counts as failure
         tracker = tracker_interface.traj_tracker
+        # The DWA tracker neither escalates nor reports solver statuses.
+        statuses = getattr(tracker, "solver_status_timelist", [])
         self.outcome_results.append({
             "outcome": ("collision" if collision
                         else "success" if complete else "timeout"),
             **({"collision_cause": getattr(self, "_last_collision_cause",
                                            None)} if collision else {}),
             "steps": kt + 1,
-            "escalations": tracker.escalation_count,
-            "bad_statuses": sum(s != "Converged"
-                                for s in tracker.solver_status_timelist),
+            "escalations": getattr(tracker, "escalation_count", 0),
+            "bad_statuses": sum(s != "Converged" for s in statuses),
         })
-        # Per-step solver exit statuses: the production convergence rate
-        # (multistart + distress escalation) beside the eval metrics.
-        self.solver_status_list += tracker.solver_status_timelist
+        # Per-step solver exit statuses (MPC tracker only): the production
+        # convergence rate (multistart + distress escalation) beside the
+        # eval metrics.
+        self.solver_status_list += statuses
 
         if not self.collision_results[-1]:
             self.smoothness_results.append(metrics.calc_action_smoothness(

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_harness.py                    # cvmp, card
     python3 scripts/profile_torch_harness.py --predictor mmp
+    python3 scripts/profile_torch_harness.py --tracker dwa --steps 5
     python3 scripts/profile_torch_harness.py --device cpu --steps 2
 
 Prepares `MainBase(scenario_index=0, evaluation=True)` with the tracker
@@ -15,7 +16,8 @@ million operators, take minutes to aggregate), and reports one JSON line
 per step: its wall time, whether it escalated, the predictor's time, the
 device's own time (kernels, memcpy, memset) and events, its idle share,
 the SPD kernel's launches and share of the device time, the host syncs,
-and the kernels that take the most device time.
+and the kernels that take the most device time.  With `--tracker dwa`
+a step is one DWA grid search (no solve, no SPD kernel, no escalation).
 """
 from __future__ import annotations
 
@@ -32,7 +34,9 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--predictor", default="cvmp", choices=["cvmp", "mmp"])
+    ap.add_argument("--tracker", default="mpc", choices=["mpc", "dwa"])
+    ap.add_argument("--predictor", default="cvmp",
+                    choices=["cvmp", "kfmp", "mmp"])
     ap.add_argument("--steps", type=int, default=3,
                     help="profiled steps after the cold first one")
     ap.add_argument("--device", default=None,
@@ -58,7 +62,8 @@ def main() -> int:
                     seed=0, scenario_index=0, solver_config=scfg, device=dev)
     robot, humans = base._prepare_agents()
     t0 = time.perf_counter()
-    intf, pred = base._prepare_interfaces(robot, args.predictor, "mpc")
+    intf, pred = base._prepare_interfaces(robot, args.predictor,
+                                          args.tracker)
     prepare_s = time.perf_counter() - t0
     tracker = intf.traj_tracker
 
@@ -72,18 +77,21 @@ def main() -> int:
     cold_s = step()
     card = card_line() if cuda else "cpu"
     for k in range(1, args.steps + 1):
-        escalations = tracker.escalation_count
+        escalations = getattr(tracker, "escalation_count", 0)
         spd.spd_solve.launches = 0
         syncs = engine.to_host.syncs + engine.any_lane.syncs
         step_s, stats = profiled(step, cuda, args.top, host=False)
         device_s = stats["device_kernel_s"]
         print(json.dumps({
-            "card": card, "predictor": args.predictor, "step": k,
+            "card": card, "tracker": args.tracker,
+            "predictor": args.predictor, "step": k,
             "prepare_s": prepare_s, "cold_first_step_s": cold_s,
             "profiled_step_s": step_s,
-            "escalated": tracker.escalation_count > escalations,
+            "escalated": getattr(tracker, "escalation_count", 0)
+            > escalations,
             "predictor_s": base._last_predict_time,
-            "status": tracker.solver_status_timelist[-1],
+            "status": (tracker.solver_status_timelist[-1]
+                       if args.tracker == "mpc" else None),
             "device_idle_share": (1.0 - device_s / step_s) if cuda else None,
             "spd_launches": spd.spd_solve.launches,
             "host_syncs": engine.to_host.syncs + engine.any_lane.syncs

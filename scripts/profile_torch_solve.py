@@ -2,6 +2,7 @@
 """Where the PyTorch port's batched NMPC solve spends its time.
 
     python3 scripts/profile_torch_solve.py            # B=2048 on the card
+    python3 scripts/profile_torch_solve.py --method panoc --iters 30
     python3 scripts/profile_torch_solve.py --device cpu --batch 8
 
 Poses chip_smoke.py's problem batch one warm receding-horizon step in,
@@ -11,7 +12,9 @@ the host wall time, the summed time of the device's own events (kernels,
 memcpy, memset), the device's idle share (1 - that time / wall time, with
 and without the profiler), the SPD kernel's share of that device time, the
 number of kernel launches and the operators that take the most host and
-device time, as one JSON line.
+device time, as one JSON line.  With `--method panoc` the bundle is PANOC
+at a one-stage budget of `--iters` iterations, and the line adds the
+warm stage's time and launches per iteration.
 """
 from __future__ import annotations
 
@@ -77,6 +80,9 @@ def main() -> int:
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA device")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--method", default="newton", choices=["newton", "panoc"])
+    ap.add_argument("--iters", type=int, default=30,
+                    help="PANOC: iterations of the one-stage warm budget")
     args = ap.parse_args()
 
     import torch
@@ -97,8 +103,11 @@ def main() -> int:
             torch.cuda.synchronize(dev)
 
     cfg = MpcConfiguration()
-    bundle = build_mpc_solver(cfg, CircularRobotSpecification(),
-                              SolverConfiguration(), device=dev)
+    scfg = (SolverConfiguration() if args.method == "newton" else
+            SolverConfiguration(max_inner_iters=args.iters,
+                                max_outer_iters=1))
+    bundle = build_mpc_solver(cfg, CircularRobotSpecification(), scfg,
+                              method=args.method, device=dev)
     make_Z, states, u_prev, U0 = make_problems(cfg, args.batch)
     sol = bundle.solve_batch_escalated(make_Z(states, u_prev, 0), U0)
     u = sol.u
@@ -124,6 +133,7 @@ def main() -> int:
 
     out = {
         "card": card_line() if cuda else "cpu",
+        "method": args.method,
         "batch": args.batch,
         "exit_ok_escalated": float(esc.exit_ok.float().mean()),
         "escalated_s": esc_s,
@@ -136,6 +146,13 @@ def main() -> int:
         if cuda else None,
         **stats,
     }
+    if args.method == "panoc":
+        out.update(iterations=args.iters,
+                   warm_stage_s_per_iteration=warm_s / args.iters,
+                   kernel_launches_per_iteration=stats["kernel_launches"]
+                   / args.iters,
+                   device_events_per_iteration=stats["device_events"]
+                   / args.iters)
     print(json.dumps(out))
     return 0
 

@@ -133,11 +133,20 @@ def test_unported_options_raise(change, match):
         _port(dataclasses.replace(SCFG, lbfgs_memory=3, **change))
 
 
-def test_panoc_and_cold_profile_options():
-    with pytest.raises(NotImplementedError, match="panoc"):
-        tengine.build_mpc_solver(TCFG, TROBOT, method="panoc", device="cpu")
+def test_panoc_and_cold_profile_options(batch):
+    """method="panoc" builds its own bundle and solves (its parity with
+    JAX: tests/test_torch_panoc*.py); without a cold profile there is no
+    escalated solve, and a pre-escalated warm penalty then warns."""
     scfg = config_from_dict(tcfg.SolverConfiguration,
                             dataclasses.asdict(SCFG))
+    short = dataclasses.replace(scfg, max_inner_iters=2, max_outer_iters=1)
+    panoc = tengine.build_mpc_solver(TCFG, TROBOT, short, method="panoc",
+                                     device="cpu")
+    assert panoc is not tengine.build_mpc_solver(TCFG, TROBOT, short,
+                                                 device="cpu")
+    Z, U0 = batch
+    sol = panoc.solve_batch(Z[:2], U0[:2])
+    assert sol.u.shape == (2, 40) and bool(torch.isfinite(sol.u).all())
     no_cold = dataclasses.replace(scfg, cold_profile=None,
                                   initial_penalty=10.0)
     assert tengine.build_mpc_solver(

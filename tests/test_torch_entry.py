@@ -1,7 +1,7 @@
 """The port's evaluation entry (`python -m dyobav_tpu_torch.sim`) on the
-CPU: its JSON summary carries the JAX package's keys, the parts that are
-not ported raise naming their ROADMAP item, and without `--device` it
-needs a CUDA device.
+CPU: its JSON summary carries the JAX package's keys, the DWA tracker and
+the Kalman predictor run, the live plot (not ported) raises naming its
+ROADMAP item, and without `--device` it needs a CUDA device.
 """
 import ast
 import json
@@ -12,6 +12,10 @@ import sys
 import pytest
 import torch
 
+from dyobav_tpu_torch.interfaces.dwa_interface import DwaInterface
+from dyobav_tpu_torch.interfaces.mpc_interface import MpcInterface
+from dyobav_tpu_torch.predictors.cvmp import CvmpInterface
+from dyobav_tpu_torch.predictors.kfmp import KfmpInterface
 from dyobav_tpu_torch.sim import entry
 from dyobav_tpu_torch.sim.harness import MainBase
 
@@ -66,22 +70,34 @@ def test_eval_prints_the_jax_summary_keys(capsys):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["eval", "--tracker", "dwa"], "item 9"),
-    (["eval", "--predictor", "kfmp"], "item 9"),
+    (["eval", "--tracker", "dwa"], None),
+    (["eval", "--predictor", "kfmp"], None),
     (["demo", "--plot"], "item 8b"),
     (["demo", "--save-plot", "frame.png"], "item 8b"),
 ])
 def test_unported_options_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        entry.main(argv + ["--device", "cpu", "--steps", "1"])
+    """The options of ROADMAP item 9 (the DWA tracker, the Kalman
+    predictor) run and return 0 since it was ported; the live plot (item
+    8b) still raises naming its item."""
+    argv = argv + ["--device", "cpu", "--steps", "1", "--runs", "1"]
+    if match is None:
+        assert entry.main(argv) == 0
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            entry.main(argv)
 
 
 def test_harness_unported_branches_raise():
+    """The branches of item 9 build the DWA interface and the Kalman
+    predictor on the harness's device; an unknown tracker still raises."""
     base = MainBase(max_run_time_step=1, device="cpu")
     robot, _ = base._prepare_agents()
-    for predictor, tracker in (("cvmp", "dwa"), ("kfmp", "mpc")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            base._prepare_interfaces(robot, predictor, tracker)
+    for predictor, tracker, kinds in (
+            ("cvmp", "dwa", (DwaInterface, CvmpInterface)),
+            ("kfmp", "mpc", (MpcInterface, KfmpInterface))):
+        intf, pred = base._prepare_interfaces(robot, predictor, tracker)
+        assert isinstance(intf, kinds[0]) and isinstance(pred, kinds[1])
+        assert intf.traj_tracker.device == torch.device("cpu")
     with pytest.raises(ValueError, match="Tracker type"):
         base._prepare_interfaces(robot, None, "pid")
 

@@ -1,6 +1,7 @@
 """The port's per-episode harness (`sim/harness.MainBase`) in lockstep with
 the JAX package's, on the CPU: a 4-step evaluation episode of scenario 1,
-seed 1, mpc + cvmp, through `MainBase.run`.
+seed 1, mpc + cvmp, through `MainBase.run`, and a 2-step one with the
+Kalman predictor (mpc + kfmp), which shares this module's JAX compiles.
 
 Both sides run the shipped `SolverConfiguration()`, the JAX side with
 `linear_solver="cholesky"` (its LU off the TPU is not what the port
@@ -34,6 +35,7 @@ from dyobav_tpu.sim import harness as jh
 from dyobav_tpu_torch import configs as tcfg
 from dyobav_tpu_torch.convert import config_from_dict
 from dyobav_tpu_torch.sim import harness as th
+from test_torch_harness_baselines import lockstep as baseline_lockstep
 
 torch.set_num_threads(1)
 
@@ -110,6 +112,36 @@ def test_cvmp_lockstep_matches_jax():
     assert rec_t[-1]["robot"][1] - rec_t[0]["robot"][1] > 0.2
     assert np.linalg.norm(rec_t[-1]["humans"][0, :2]
                           - rec_t[0]["humans"][0, :2]) > 0.5
+
+
+def test_mpc_kfmp_lockstep_matches_jax():
+    """The Kalman predictor's numpy predictions agree to 1e-9 (its
+    covariance carries over between steps on both sides), the robot within
+    1e-3 m at every step, flags, escalations and the summary equal."""
+    steps = 2
+    (jbase, rec_j, pred_j), (tbase, rec_t, pred_t) = baseline_lockstep(
+        "mpc", "kfmp", jax_kw=dict(solver_config=SCFG),
+        port_kw=dict(solver_config=TSCFG), max_num_run=1,
+        max_run_time_step=steps, evaluation=True, seed=1, scenario_index=1)
+    dev = [float(np.abs(t["robot"][:2] - j["robot"][:2]).max())
+           for j, t in zip(rec_j, rec_t)]
+    print(f"mpc+kfmp robot deviation per step {dev}")
+    assert len(rec_t) == len(rec_j) == steps
+    for k, (j, t) in enumerate(zip(rec_j, rec_t)):
+        assert dev[k] <= 1e-3, (k, dev)
+        np.testing.assert_allclose(t["humans"], j["humans"], rtol=0,
+                                   atol=1e-9)
+        assert t["out"][:2] == j["out"][:2] == (False, False)
+    assert len(pred_t) == len(pred_j) == steps
+    for a, b in zip(pred_t, pred_j):
+        assert a.shape == (tbase.config_mpc.N_hor, 2)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
+    s_j, s_t = jbase.results_summary(), tbase.results_summary()
+    assert set(s_t) == set(s_j) and "converged_rate" in s_t
+    assert s_t["outcomes"] == s_j["outcomes"]
+    assert s_t["converged_rate"] == s_j["converged_rate"]
+    robot = tbase.episode[0]
+    assert robot.state[1] - robot.past_traj[0][1] > 0.1
 
 
 def test_no_predictor_step_matches_jax():

@@ -32,12 +32,14 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) >= 25
-    # The scan covers the per-episode harness and its entry.
+    # The scan covers the per-episode harness, its entry and the baselines.
     rel = {os.path.relpath(p, REPO) for p in files}
     assert {f"dyobav_tpu_torch/{m}.py" for m in (
         "trackers/mpc_tracker", "interfaces/mpc_interface", "motion/agents",
         "motion/models", "predictors/cvmp", "sim/metrics", "sim/harness",
-        "sim/entry", "sim/__main__")} <= rel
+        "sim/entry", "sim/__main__", "ops/panoc", "ops/dwa",
+        "trackers/dwa_tracker", "interfaces/dwa_interface", "motion/kalman",
+        "predictors/kfmp")} <= rel
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",

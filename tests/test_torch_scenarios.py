@@ -111,16 +111,20 @@ def test_scenario_moves_to_tensors(bases):
         assert torch.equal(getattr(direct, f), t), f
 
 
-def test_unported_parts_raise(bases):
-    """What is still not ported raises and names its ROADMAP item: the DWA
-    tracker and the Kalman predictor (item 9), the fleet (item 10); an
-    invalid scenario raises too."""
-    tbase = bases[1]
+def test_unported_parts_raise():
+    """What is still not ported raises and names its ROADMAP item: the fleet
+    (item 10); an invalid scenario raises too.  The parts of item 9 run
+    now: a DWA episode with the cvmp predictor through `run` on the
+    scenarios' map, and the Kalman predictor's interfaces."""
+    tbase = th.MainBase(max_run_time_step=3, evaluation=True, seed=0,
+                        device="cpu")
     robot, _ = tbase._prepare_agents()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tbase.run("dwa", "cvmp")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tbase._prepare_interfaces(robot, "kfmp", "mpc")
+    tbase.run("dwa", "cvmp")
+    assert tbase.outcome_results[-1]["steps"] == 3
+    assert len(tbase.episode[2].traj_tracker.past_actions) == 3
+    intf, pred = tbase._prepare_interfaces(robot, "kfmp", "mpc")
+    positions, _ = pred.get_motion_prediction([[0.0, 0.0], [0.1, 0.0]])
+    assert len(positions) == 20 and positions[-1][0] > 0.1
     with pytest.raises(NotImplementedError, match="item 10"):
         ts.random_fleet_scenarios(tbase, 2)
     with pytest.raises(ValueError, match="Invalid scenario"):
