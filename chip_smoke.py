@@ -54,7 +54,26 @@ just after:
    on PANOC_REF_BATCH of them at a 5-iteration budget.  PANOC solves no
    linear system: it runs no hand-written kernel, and the script fails if
    it launches one.  Its ~1,650 eager iterations run in a third process
-   beside the others.
+   beside the others;
+7. the off-default solver modes (`hessian_mode="structured"`, `"jacfwd"`,
+   `linear_solver="schulz"`, `fused=False`): `solve_batch_escalated` on
+   path 1's first MODE_BATCH step-0 problems at MODE_BUDGET, each on the
+   card against the port's CPU run (`solve_batch_escalated[<mode>]`, in
+   PANOC's process after it).  Schulz solves with matrix products and
+   must launch no kernel; the others launch kernel 1;
+8. the deployment node, the robot-on-the-floor entry:
+   `NavigationNode(fused_step=build_step_program(...))` on a
+   `LocalTransport`, scenario 0 at the shipped `SolverConfiguration()`,
+   in the world of `scripts/deploy_latency_torch.py` (the pedestrian
+   drifts, the robot follows the commanded action), in the harness's
+   process after its phases: the cold start and DEPLOY_REF_TICKS ticks on
+   the card against the port's CPU run (`deploy_card_vs_cpu`), then
+   DEPLOY_TICKS ticks with cvmp (`deploy[cvmp]`) and DEPLOY_WTA_TICKS with
+   the neural predictor on the strictly loaded net (`deploy[wta]`).  Each
+   fails on a non-finite action, a negative speed, a cmd_vel count other
+   than the ticks, or other than two host syncs a tick (the node's one
+   copy and the multistart's one sync).  The cold start runs kernel 1 at
+   (1, 4), a tick at (5, 4).
 
 Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
 cache) and one call at a time after a write that evicts the L2 cache
@@ -118,6 +137,22 @@ PANOC_BUDGET = dict(max_inner_iters=300, max_outer_iters=10,
                     inner_iters_later=150)   # tests/test_panoc.py's OpEn scale
 PANOC_REF_BATCH = 8       # problems of the PANOC card-vs-CPU check
 PANOC_REF_BUDGET = dict(max_inner_iters=5, max_outer_iters=1)
+DEPLOY_REF_TICKS = 2      # ticks of deploy_card_vs_cpu (the first holds
+                          # the cold start)
+DEPLOY_TICKS = 4          # ticks of deploy[cvmp]
+DEPLOY_WTA_TICKS = 3      # ticks of deploy[wta]
+MODE_BATCH = 16           # path 1's step-0 problems of the solver modes
+# The solver modes' short budget: warm 10 + 4 x 5 iterations with the
+# penalty ramped from 10 (tests/test_torch_newton_modes.py's float32
+# budget), one escalation stage of 6 + 3 iterations.
+MODE_BUDGET = dict(max_inner_iters=10, max_outer_iters=5,
+                   inner_iters_later=5, newton_substeps=1,
+                   initial_penalty=10.0, cold_profile=(6, 2, 3, 1, 10.0),
+                   escalation_ladder=((6, 2, 3, 1, 10.0),))
+MODES = (("structured", {"hessian_mode": "structured"}),
+         ("jacfwd", {"hessian_mode": "jacfwd"}),
+         ("schulz", {"linear_solver": "schulz"}),
+         ("staged", {"fused": False}))
 CHILD_TIMEOUT_S = 600     # wait for the other processes after paths 1-4
 
 
@@ -980,9 +1015,169 @@ def drive_harness_path(tracker, predictor, scfg, T, device, whole=False):
     return launches
 
 
+def deploy_node(device, predictor=None):
+    """`NavigationNode(fused_step=build_step_program(...))` on a
+    `LocalTransport`, scenario 0 at the shipped `SolverConfiguration()`;
+    returns (node, transport, scenario)."""
+    from dyobav_tpu_torch.configs import SolverConfiguration
+    from dyobav_tpu_torch.sim.batch import build_step_program
+    from dyobav_tpu_torch.sim.deploy import LocalTransport, NavigationNode
+    from dyobav_tpu_torch.sim.harness import MainBase
+    from dyobav_tpu_torch.sim.scenarios import build_scenario
+
+    base = MainBase(max_run_time_step=3, evaluation=True, seed=0,
+                    device=device)
+    sc = build_scenario(base, scenario_index=0)
+    fused = build_step_program(base.config_mpc, base.config_robot,
+                               SolverConfiguration(), predictor=predictor,
+                               device=device)
+    transport = LocalTransport()
+    node = NavigationNode(transport, fused_step=fused, scenario=sc,
+                          n_humans=int(sc.human_starts.shape[0]),
+                          device=device)
+    return node, transport, sc
+
+
+def deploy_ticks(nodes, sc, ticks):
+    """Drive `nodes` ((node, transport) pairs) through the same drifting
+    world as scripts/deploy_latency_torch.py: the pedestrian moves by
+    uniform(-0.1, 0.1) + [0, 0.15] m before each tick but the first
+    (`default_rng(0)`), and the robot follows the first node's action.
+    Returns per node the (action, wall s, ref_idx) of each tick."""
+    import torch
+
+    from dyobav_tpu_torch.motion.models import unicycle_step_np
+
+    rng = np.random.default_rng(0)
+    state = np.asarray(sc.robot_start, float)
+    humans = np.asarray(sc.human_starts, float)
+    out = [[] for _ in nodes]
+    for k in range(ticks):
+        if k:
+            humans = humans + rng.uniform(-0.1, 0.1, humans.shape) + [0.0,
+                                                                      0.15]
+        for (node, transport), rec in zip(nodes, out):
+            transport.publish("actor_poses", {"poses": {
+                f"a{i}": (p[0], p[1]) for i, p in enumerate(humans)}})
+            transport.publish("robot_pose", {"x": state[0], "y": state[1],
+                                             "theta": state[2]})
+            t0 = time.perf_counter()
+            a = node.control_tick()
+            wall = time.perf_counter() - t0
+            rec.append((np.asarray(a), wall, int(node.fused["ref_idx"])))
+        state = unicycle_step_np(state, np.asarray(out[0][-1][0], float),
+                                 0.2)
+    torch.cuda.synchronize()
+    return out
+
+
+def deploy_reference_check(device):
+    """Phase deploy_card_vs_cpu: the fused step program of scenario 0 with
+    cvmp at the shipped budget, its cold start and DEPLOY_REF_TICKS ticks
+    on the card against the port's own CPU run, fed the same messages."""
+    card_node, card_tr, sc = deploy_node(device)
+    cpu_node, cpu_tr, _ = deploy_node("cpu")
+    card, cpu = deploy_ticks([(card_node, card_tr), (cpu_node, cpu_tr)], sc,
+                             DEPLOY_REF_TICKS)
+    dev_a = [float(np.abs(a - b).max()) for (a, _, _), (b, _, _)
+             in zip(card, cpu)]
+    flags = [[m["converged"] for m in tr.published["viz"]]
+             for tr in (card_tr, cpu_tr)]
+    idx = [[r for _, _, r in run] for run in (card, cpu)]
+    print(json.dumps({
+        "phase": "deploy_card_vs_cpu", "scenario": 0,
+        "ticks": DEPLOY_REF_TICKS, "action_dev_per_tick": dev_a,
+        "converged_card": flags[0], "converged_cpu": flags[1],
+        "ref_idx_card": idx[0], "ref_idx_cpu": idx[1],
+        "card_s_per_tick": [w for _, w, _ in card],
+        "cpu_s_per_tick": [w for _, w, _ in cpu]}), flush=True)
+    if not (max(dev_a) <= 1e-3 and flags[0] == flags[1]
+            and idx[0] == idx[1]):
+        raise AssertionError("card and CPU runs of the step program disagree")
+
+
+def drive_deploy_path(device, name, ticks, predictor=None):
+    """Path `name`: the deployment node on the card for `ticks` ticks (the
+    first holds the cold start).  Fails on a non-finite action, a negative
+    speed, a cmd_vel count other than the ticks, or other than two host
+    syncs a tick (the node's one copy, the multistart's one sync).
+    Returns (kernel 1's launches, the per-tick walls)."""
+    from dyobav_tpu_torch.ops import engine, spd
+
+    node, transport, sc = deploy_node(device, predictor)
+    reset_counts()
+    (run,) = deploy_ticks([(node, transport)], sc, ticks)
+    launches = spd.spd_solve.launches
+    syncs = engine.any_lane.syncs + engine.to_host.syncs
+    actions = np.array([a for a, _, _ in run])
+    walls = [w for _, w, _ in run]
+    print(json.dumps({
+        "main_path": name, "scenario": 0, "ticks": ticks,
+        "ms_per_tick": [1e3 * w for w in walls],
+        "host_copies_per_tick": syncs / ticks,
+        "spd_launches": launches, "spd_launches_per_tick": launches / ticks,
+        "converged_per_tick": [m["converged"]
+                               for m in transport.published["viz"]],
+        "cost_per_tick": [m["cost"] for m in transport.published["viz"]],
+        "actions": actions.tolist()}), flush=True)
+    if not (actions.shape == (ticks, 2) and np.isfinite(actions).all()):
+        raise AssertionError(f"{name}: a non-finite or missing action")
+    if (actions[:, 0] < 0).any():
+        raise AssertionError(f"{name}: a negative speed")
+    if len(transport.published["cmd_vel"]) != ticks:
+        raise AssertionError(f"{name}: {len(transport.published['cmd_vel'])}"
+                             f" cmd_vel messages for {ticks} ticks")
+    if syncs != 2 * ticks:
+        raise AssertionError(f"{name}: {syncs} host syncs in {ticks} ticks")
+    if launches <= 0:
+        raise AssertionError(f"{name} never launched spd_cholesky")
+    return launches, walls
+
+
+def deploy_paths(device) -> dict:
+    """The deployment node: its card-vs-CPU check, then deploy[cvmp] and
+    deploy[wta] (the strictly loaded net, the predictor timed with CUDA
+    events); returns kernel 1's launches by path."""
+    import torch
+
+    from dyobav_tpu_torch.models.wta_net import load_checkpoint
+    from dyobav_tpu_torch.sim.harness import MainBase
+
+    deploy_reference_check(device)
+    launches = {"deploy[cvmp]": drive_deploy_path(
+        device, "deploy[cvmp]", DEPLOY_TICKS)[0]}
+    base = MainBase(max_run_time_step=3, evaluation=True, seed=0,
+                    device=device)
+    net = load_checkpoint(os.path.join(ROOT, "Model",
+                                       "wsd_1t20_full_torch.pt"), device)
+    predict = make_wta(base, net, device)
+    calls = []
+
+    def timed_predict(hist):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = predict(hist)
+        end.record()
+        calls.append((start, end))
+        return out
+
+    launches["deploy[wta]"], walls = drive_deploy_path(
+        device, "deploy[wta]", DEPLOY_WTA_TICKS, timed_predict)
+    # One call in the cold start, one a tick.
+    ms = [s.elapsed_time(e) for s, e in calls]
+    print(json.dumps({"phase": "deploy[wta] predictor",
+                      "predictor_calls": len(ms),
+                      "predictor_ms_per_call": ms,
+                      "wall_ms_per_tick": [1e3 * w for w in walls]}),
+          flush=True)
+    if len(ms) != DEPLOY_WTA_TICKS + 1:
+        raise AssertionError(f"deploy[wta]: {len(ms)} predictor calls")
+    return launches
+
+
 def harness_paths(device) -> dict:
-    """Path 5 and its card-vs-CPU checks; returns kernel 1's launches by
-    the harness's MPC paths."""
+    """Path 5 and its card-vs-CPU checks, then the deployment node (path
+    8); returns kernel 1's launches by the MPC paths."""
     from dyobav_tpu_torch.configs import SolverConfiguration
 
     harness_reference_check(device)
@@ -998,6 +1193,7 @@ def harness_paths(device) -> dict:
     drive_harness_path("dwa", "kfmp", None, HARNESS_DWA_STEPS, device)
     launches["harness[mpc+kfmp]"] = drive_harness_path(
         "mpc", "kfmp", SolverConfiguration(), HARNESS_KFMP_STEPS, device)
+    launches.update(deploy_paths(device))
     return launches
 
 
@@ -1075,7 +1271,19 @@ def drive_panoc_path(device) -> int:
     return launches
 
 
-CHILD_PHASES = {"harness": harness_paths, "panoc": drive_panoc_path}
+def solver_paths(device) -> dict:
+    """Path 6, then path 7 (the solver modes, whose CPU references would
+    lengthen the main process, the longest); returns kernel 1's launches
+    by the modes that launch it."""
+    from dyobav_tpu_torch.configs import (CircularRobotSpecification,
+                                          MpcConfiguration)
+
+    drive_panoc_path(device)
+    return drive_mode_paths(MpcConfiguration(), CircularRobotSpecification(),
+                            device)
+
+
+CHILD_PHASES = {"harness": harness_paths, "solvers": solver_paths}
 
 
 def child_main(results, name: str, device: str) -> None:
@@ -1093,6 +1301,62 @@ def child_main(results, name: str, device: str) -> None:
     except BaseException:
         results.put((name, "error", traceback.format_exc()))
         raise
+
+
+def drive_mode_paths(cfg, robot, device) -> dict:
+    """Path 7: `solve_batch_escalated` in each off-default solver mode
+    (MODES) on path 1's first MODE_BATCH step-0 problems at MODE_BUDGET,
+    on the card against the port's CPU run: u within 1e-3 and the flags
+    equal on at least 3/4 of the lanes.  Schulz must launch no kernel, the
+    others kernel 1.  Returns kernel 1's launches by the modes that launch
+    it."""
+    import torch
+
+    from dyobav_tpu_torch.configs import SolverConfiguration
+    from dyobav_tpu_torch.ops import spd
+    from dyobav_tpu_torch.ops.engine import build_mpc_solver
+
+    make_Z, states, u_prev, U0 = make_problems(cfg, BATCH)
+    Z, U = make_Z(states, u_prev, 0)[:MODE_BATCH], U0[:MODE_BATCH]
+    launches = {}
+    for name, change in MODES:
+        scfg = SolverConfiguration(**MODE_BUDGET, **change)
+        bundle = build_mpc_solver(cfg, robot, scfg, device=device)
+        reset_counts()
+        t0 = time.perf_counter()
+        card = bundle.solve_batch_escalated(Z, U)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = spd.spd_solve.launches
+        t0 = time.perf_counter()
+        cpu = build_mpc_solver(cfg, robot, scfg, device="cpu"
+                               ).solve_batch_escalated(Z, U)
+        cpu_s = time.perf_counter() - t0
+        uc, ec = card.u.cpu().numpy(), card.exit_ok.cpu().numpy()
+        du = np.abs(uc - cpu.u.numpy()).max(axis=1)
+        agree = (du <= 1e-3) & (ec == cpu.exit_ok.numpy())
+        print(json.dumps({
+            "main_path": f"solve_batch_escalated[{name}]",
+            "batch": MODE_BATCH, "option": change, "wall_s": wall,
+            "cpu_s": cpu_s, "spd_launches": n,
+            "exit_ok_card": float(ec.mean()),
+            "exit_ok_cpu": float(cpu.exit_ok.float().mean()),
+            "lanes_agree": float(agree.mean()),
+            "u_dev_max": float(du.max())}), flush=True)
+        if not np.isfinite(uc).all():
+            raise AssertionError(f"mode {name}: a non-finite u")
+        if agree.mean() < 0.75:
+            raise AssertionError(f"mode {name}: card and CPU agree on "
+                                 f"{agree.mean():.3f} of the lanes")
+        if name == "schulz":
+            if n != 0:
+                raise AssertionError("the Schulz solve launched "
+                                     "spd_cholesky")
+        elif n <= 0:
+            raise AssertionError(f"mode {name} never launched spd_cholesky")
+        else:
+            launches[f"solve_batch_escalated[{name}]"] = n
+    return launches
 
 
 def drive_paths(device):
@@ -1156,7 +1420,8 @@ def main() -> int:
     # SIM_BATCH lanes, 4 rungs), its cold re-solve of the distressed lanes
     # (5 candidates x K_sim slots) and its step-0 cold pre-solve (SIM_BATCH
     # lanes); the neural sim's three stages likewise at WTA_BATCH lanes;
-    # the harness's one robot (5 candidates, 4 rungs); the second kernel
+    # the harness's and the deployment tick's one robot (5 candidates, 4
+    # rungs) and the deployment's cold start (one lane); the second kernel
     # at the solve's 8192 systems, at its docstring's 512 and at a ragged
     # 200.  The sims' cold slots are sim/batch.py's
     # max(B // 2, min(B, 8), 1).
@@ -1169,7 +1434,7 @@ def main() -> int:
         spd.spd_solve_plain,
         [(BATCH, 4), (K, 4), (5 * SIM_BATCH, 4), (5 * K_sim, 4),
          (SIM_BATCH, 4), (5 * WTA_BATCH, 4), (5 * K_wta, 4),
-         (WTA_BATCH, 4), (5, 4)], device, PEAKS)
+         (WTA_BATCH, 4), (5, 4), (1, 4)], device, PEAKS)
     entry2 = check_kernel(
         "spd_lanes", "dyobav_tpu_torch/csrc/spd_lanes.cu",
         "docs/negative_results/pallas_linalg_lanes.py:30",
@@ -1177,9 +1442,9 @@ def main() -> int:
         spd_lanes.batched_spd_solve_plain,
         [(LANES_BATCH,), (512,), (200,)], device, PEAKS)
 
-    # The harness's paths and PANOC's run in two more processes beside the
-    # others (their launch counts are their own), started once the kernels
-    # are timed.
+    # The harness's paths with the deployment node, and PANOC's with the
+    # solver modes, run in two more processes beside the others (their
+    # launch counts are their own), started once the kernels are timed.
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     children = [ctx.Process(target=child_main, args=(results, name, "cuda:0"))
@@ -1210,6 +1475,7 @@ def main() -> int:
         if child.exitcode != 0:
             raise AssertionError(f"a child process exited {child.exitcode}")
     launches.update(payloads["harness"])
+    launches.update(payloads["solvers"])
 
     entry1["launches"] = sum(launches.values())
     entry1["launches_by_path"] = launches

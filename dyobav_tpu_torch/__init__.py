@@ -5,9 +5,10 @@ the JAX package's module paths and names so each counterpart is easy to
 find, imports `torch` and numpy (never JAX, never `dyobav_tpu`), and runs
 its entry points on a CUDA device unless the caller passes `device="cpu"`.
 
-Ported so far (the batched NMPC solve, the closed-loop batched simulation
-with the constant-velocity or the SWTA neural predictor, the per-episode
-harness with every tracker and predictor, and the PANOC method):
+Ported so far (the batched NMPC solve in every solver mode, the
+closed-loop batched simulation with the constant-velocity or the SWTA
+neural predictor, the per-episode harness with every tracker and
+predictor, the PANOC method, and the deployment node):
     configs           L0  MpcConfiguration, CircularRobotSpecification,
                           SolverConfiguration, WarehouseSimConfiguration,
                           WtaNetConfiguration, DwaConfiguration
@@ -17,7 +18,7 @@ harness with every tracker and predictor, and the PANOC method):
     utils.geometry    L1  host-side polygon geometry (numpy)
     maps.*            L2  PGM and PNG readers, blobs, occupancy /
                           geometric maps, transforms, navigation graph (no
-                          networkx, no imaging library)
+                          networkx, no imaging library), preset maps
     models.wta_net    L2  ConvMultiHypoNet (SWTA CNN), load_checkpoint
     models.heatmap    L2  heat-map input stacks
     ops.params        L3  flat parameter vector <-> MpcParams
@@ -25,7 +26,8 @@ harness with every tracker and predictor, and the PANOC method):
     ops.spd           L3  batched SPD solve (CUDA kernel csrc/spd_cholesky.cu)
     ops.spd_lanes     L3  left-looking batched SPD solve, an entry point of
                           its own (CUDA kernel csrc/spd_lanes.cu)
-    ops.newton        L3  ALM Newton solver (block Hessian, fused loop)
+    ops.newton        L3  ALM Newton solver (block, structured or jacfwd
+                          Hessian; fused or staged loop; Schulz solve)
     ops.panoc         L3  ALM PANOC solver (L-BFGS, FBE line search)
     ops.engine        L3  build_mpc_solver, solve_batch_escalated
     ops.dwa           L3  batched DWA grid search
@@ -38,7 +40,10 @@ harness with every tracker and predictor, and the PANOC method):
     sim.entry         L5  python -m dyobav_tpu_torch.sim {demo,eval}
     sim.scenarios     L5  build_scenario, random_scenarios
     sim.batch         L5  build_lane_solvers, build_batch_sim,
-                          make_wta_predictor
+                          make_wta_predictor, build_step_program
+    sim.deploy        L5  NavigationNode on a Transport (the robot's
+                          control node); sim.ros_adapter maps it onto ROS
+    sim.plotter       L5  the demo's live plot (matplotlib, imported lazily)
     sim.sweep         L5  python -m dyobav_tpu_torch.sim.sweep
     convert               parameters, configurations, scenarios and the
                           SWTA net's weights from the JAX package

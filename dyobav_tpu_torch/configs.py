@@ -196,11 +196,15 @@ class SolverConfiguration:
     unchanged) means the port's own batched SPD Cholesky kernel
     (`ops/spd.py`, CUDA source `csrc/spd_cholesky.cu`), which computes
     what the JAX package's Pallas kernel computes.  "cholesky" is the same
-    algorithm in plain PyTorch ops.  "schulz" is not ported yet and raises
-    NotImplementedError (ROADMAP.md).
+    algorithm in plain PyTorch ops.  "schulz" is the Newton–Schulz inverse
+    in `schulz_iters` pairs of batched matrix products
+    (`ops/newton.schulz_spd_solve`), inexact in float32 on ill-conditioned
+    systems.
 
-    hessian_mode: only "block" (the default) is ported; "structured" and
-    "jacfwd" raise NotImplementedError (ROADMAP.md).
+    hessian_mode: the exact merit Hessian's assembly, one matrix to float
+    tolerance whichever: "block" (the default: per-step 7×7 blocks),
+    "structured" (n Hessian-vector products of the horizon cost) or
+    "jacfwd" (forward-over-reverse through the rollout).
     """
 
     max_inner_iters: int = 3        # inner iterations in the first ALM stage

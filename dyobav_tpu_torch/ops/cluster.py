@@ -126,3 +126,13 @@ def cluster_gaussian_fit(points: torch.Tensor, eps: float = 1.0,
     var = torch.sum(member[..., None] * dev * dev, dim=-2) / safe
     std = torch.sqrt(var) * enlarge + extra_margin
     return mu * alpha[..., None], std * alpha[..., None], alpha
+
+
+def cluster_gaussian_fit_horizon(points_t: torch.Tensor, eps: float = 1.0,
+                                 enlarge: float = 2.0,
+                                 extra_margin: float = 0.0,
+                                 max_clusters: int = 8):
+    """`cluster_gaussian_fit` over the horizon axis, the JAX package's name
+    for it: points_t (T, n, 2) -> (T, max_clusters, 2 / 2 / .)."""
+    return cluster_gaussian_fit(points_t, eps, enlarge, extra_margin,
+                                max_clusters)

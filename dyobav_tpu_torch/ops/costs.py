@@ -367,6 +367,36 @@ def make_block_curvature(p: MpcParams, cfg: MpcConfiguration,
     return block_fn
 
 
+def constraint_residuals(u_flat: torch.Tensor, p: MpcParams,
+                         cfg: MpcConfiguration,
+                         robot: CircularRobotSpecification):
+    """Disaggregated smooth constraint residuals (feasible iff all <= 0).
+
+    The penalty channel F2 (a sum of hinges, see `evaluate`) is zero
+    exactly when every one of these residuals is non-positive: the same
+    NLP with its constraints exposed one by one, for an independent NLP
+    solver (the JAX package's `scripts/parity_check.py`).
+
+    Returns (f1, stc, dyn):
+      f1  (2 N_hor,)        acceleration values, bounded by C
+      stc (N_hor * Nstcobs,) polygon inside-products (>0 inside)
+      dyn (2 * N_hor * Ndynobs,) ellipse indicators, current + predictive
+    """
+    N, nu = cfg.N_hor, cfg.nu
+    u = u_flat.reshape(N, nu)
+    states_xy = rollout_states(p.s0, u, cfg.ts)[:, :2]
+    stc = _polygon_residuals(states_xy, p.stc_obs, cfg.nstcobs // 3)
+    ell_cur = p.dyn_obs[:, 0, :].expand(N, -1, -1)
+    ind_cur = _ellipse_indicator(states_xy, ell_cur, 0.0)        # (N, M)
+    ell_pred = p.dyn_obs[:, 1:, :].transpose(0, 1)              # (N, M, 6)
+    ind_pred = _ellipse_indicator(states_xy, ell_pred, 0.0)      # (N, M)
+    v, w = u[:, 0], u[:, 1]
+    acc = (v - torch.cat([p.u_prev[:1], v[:-1]])) / cfg.ts
+    w_acc = (w - torch.cat([p.u_prev[1:2], w[:-1]])) / cfg.ts
+    return (torch.cat([acc, w_acc]), stc.reshape(-1),
+            torch.cat([ind_cur.reshape(-1), ind_pred.reshape(-1)]))
+
+
 def action_bounds(cfg: MpcConfiguration, robot: CircularRobotSpecification,
                   dtype=torch.float32, device=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,12 +10,14 @@ substep on (B, 4, n, n).  `lax.scan` becomes a Python loop whose carries
 are tensors, and convergence stays masked (`torch.where`): no lane exits
 early.
 
-Ported: the `"block"` Hessian mode and the fused single-loop ALM
-(`solve_fused`, the `fused=True` default) with its `merit_fn`,
-`alm_update` and `stationarity_probe`.  Not on the main path and not
-ported yet (ROADMAP.md): the staged `solve` (`fused=False`),
-`scaled_residual`, the `"structured"` and `"jacfwd"` Hessian modes and
-`schulz_spd_solve`; each raises NotImplementedError.
+Every mode of the JAX solver is ported: the fused single-loop ALM
+(`solve_fused`, the `fused=True` default) and the staged `solve`
+(`fused=False`, one Python loop per ALM stage); the three exact merit
+Hessians (`"block"`, the default, `"structured"` and `"jacfwd"`, the
+last also when no split objective is given); and three linear solvers:
+the hand-written SPD kernel (`"pallas"`), its plain version
+(`"cholesky"`) and `schulz_spd_solve` (`"schulz"`, matrix products only,
+which launches no kernel of the port's own).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.func import grad, grad_and_value, jacfwd, vmap
+from torch.func import grad, grad_and_value, jacfwd, jvp, vmap
 
 from ..configs import SolverConfiguration
 from .costs import _clip
@@ -33,9 +35,26 @@ from .spd import spd_solve, spd_solve_plain
 _LM_LADDER = (0.2, 1.0, 5.0, 50.0)
 
 
-def schulz_spd_solve(A: torch.Tensor, g: torch.Tensor, iters: int = 14):
-    raise NotImplementedError(
-        "schulz_spd_solve is not ported yet (ROADMAP.md, queue A item 3)")
+def schulz_spd_solve(A: torch.Tensor, g: torch.Tensor,
+                     iters: int = 14) -> torch.Tensor:
+    """SPD solve A⁻¹g via Newton–Schulz inverse iteration: matrix products
+    only, two batched 40×40 products an iteration over any leading dims.
+
+    X₀ = I/λ̄ with λ̄ the Gershgorin row-sum bound gives ‖I − X₀A‖ < 1 for
+    SPD A, and each iteration X ← X(2I − AX) squares the error; as in the
+    JAX package X is not symmetrised.  The step is inexact at float32 level
+    for ill-conditioned rungs, which the LM ladder's merit comparison
+    absorbs.  On a CUDA device the products must run in float32, not TF32
+    (`torch.backends.cuda.matmul.allow_tf32`, False by default).
+    """
+    n = A.shape[-1]
+    eye_n = torch.eye(n, dtype=A.dtype, device=A.device)
+    lam = torch.amax(torch.sum(torch.abs(A), dim=-1), dim=-1)
+    X = eye_n / lam[..., None, None]
+    two_eye = 2.0 * eye_n
+    for _ in range(iters):
+        X = X @ (two_eye - A @ X)
+    return torch.einsum("...ij,...j->...i", X, g)
 
 
 class NewtonResult(NamedTuple):
@@ -47,24 +66,23 @@ class NewtonResult(NamedTuple):
     converged: torch.Tensor      # (B,) bool
 
 
-def make_structured_hessian(split, proj_rect, mode: str = "block"):
-    """Exact merit Hessian of one lane assembled from the problem structure
-    (block mode), as `dyobav_tpu.ops.newton.make_structured_hessian`:
+def make_structured_hessian(split, proj_rect, mode: str = "structured"):
+    """Exact merit Hessian of one lane assembled from the problem structure,
+    as `dyobav_tpu.ops.newton.make_structured_hessian`:
 
         ψ(u) = φ(X(u), u)  with  X_k = f(X_{k-1}, u_k)
-        ∇²ψ  = Σ_k S7ᵀ C7 S7 + c·VᵀV  +  Σ_k S_kᵀ (q_k · ∇²f_k) S_k
+        ∇²ψ  = Gᵀ(∇²φ)G  +  Σ_k S_kᵀ (q_k · ∇²f_k) S_k
 
-    with J = dX/du, the per-step 7×7 blocks C7 and hinge gradients gF from
-    `costs.make_block_curvature`, and q the second-order adjoint.
+    with G = [J; I], J = dX/du, and q the second-order adjoint.  The cost
+    part Gᵀ(∇²φ)G is taken, by `mode`:
+      * "structured": as n Hessian-vector products of φ along G's columns
+        (`jvp` of `grad`, vmapped over the columns);
+      * "block": Σ_k S7ᵀ C7 S7 + c·VᵀV from the per-step 7×7 blocks C7 and
+        hinge gradients gF of `costs.make_block_curvature`.
 
     `split(p)` returns `costs.split_objective` for the lane's params p.
     Returns hess(u, y, c, p) -> (n, n) for one lane; vmap it over lanes.
     """
-    if mode != "block":
-        raise NotImplementedError(
-            f"hessian_mode={mode!r} is not ported yet; only 'block' is "
-            "(ROADMAP.md, queue A item 3)")
-
     def merit_x(phi, X, u, y, c):
         f, f1, f2 = phi(X, u)
         shifted = f1 + y / c
@@ -102,13 +120,23 @@ def make_structured_hessian(split, proj_rect, mode: str = "block"):
             Js.append(Jk)
         J = torch.stack(Js)                              # (N, ns, n)
 
-        gz = grad(merit_z)(z)
-        C7, gF = blocks(X, u, y, c)
-        E_prev = torch.cat([torch.zeros_like(E[:1]), E[:-1]], dim=0)
-        S7 = torch.cat([J, E, E_prev], dim=1)            # (N, ns+2nu, n)
-        H_cost = torch.einsum("kpi,kpq,kqj->ij", S7, C7, S7)
-        V = torch.einsum("kri,kmr->mi", J, gF)           # (M, n)
-        H_cost = H_cost + c * (V.T @ V)
+        if mode == "block":
+            gz = grad(merit_z)(z)
+            C7, gF = blocks(X, u, y, c)
+            E_prev = torch.cat([torch.zeros_like(E[:1]), E[:-1]], dim=0)
+            S7 = torch.cat([J, E, E_prev], dim=1)        # (N, ns+2nu, n)
+            H_cost = torch.einsum("kpi,kpq,kqj->ij", S7, C7, S7)
+            V = torch.einsum("kri,kmr->mi", J, gF)       # (M, n)
+            H_cost = H_cost + c * (V.T @ V)
+        else:
+            # Gᵀ(∇²φ)G without the (N·ns+n)² matrix: n Hessian-vector
+            # products of φ along G's columns (`jax.linearize` in JAX).
+            G = torch.cat([J.reshape(N * ns, n),
+                           torch.eye(n, dtype=dtype, device=u.device)])
+            grad_z = grad(merit_z)
+            gz = grad_z(z)
+            W = vmap(lambda v: jvp(grad_z, (z,), (v,))[1])(G.T)  # (n, N·ns+n)
+            H_cost = W @ G
         lam = gz[:N * ns].reshape(N, ns)
 
         qk = lam[N - 1]
@@ -156,21 +184,10 @@ def make_alm_newton_solver(
     elif scfg.linear_solver == "cholesky":
         lin_solve = spd_solve_plain
     elif scfg.linear_solver == "schulz":
-        raise NotImplementedError(
-            "linear_solver='schulz' is not ported yet (ROADMAP.md, queue A "
-            "item 3)")
+        def lin_solve(A, g):
+            return schulz_spd_solve(A, g, scfg.schulz_iters)
     else:
         raise ValueError(f"unknown linear_solver {scfg.linear_solver!r}")
-    if split is None:
-        raise NotImplementedError(
-            "the jacfwd merit Hessian (no split objective) is not ported yet "
-            "(ROADMAP.md, queue A item 3)")
-    if not scfg.fused:
-        raise NotImplementedError(
-            "the staged solve (fused=False) is not ported yet (ROADMAP.md, "
-            "queue A item 3)")
-    hess_lane = make_structured_hessian(
-        split, lambda x: _clip(x, c_lo, c_hi), scfg.hessian_mode)
 
     def proj_box(u):
         return _clip(u, u_lo, u_hi)
@@ -188,6 +205,15 @@ def make_alm_newton_solver(
         """(ψ (B,), ∇ψ (B, n))."""
         g, psi = vmap(grad_and_value(merit_fn))(u, y, c, P)
         return psi, g
+
+    if split is not None and scfg.hessian_mode in ("structured", "block"):
+        # Structure-exploiting exact Hessian: no tangents through the
+        # rollout's loop.
+        hess_lane = make_structured_hessian(split, proj_rect,
+                                            scfg.hessian_mode)
+    else:
+        # Forward-over-reverse: n tangents through the rollout.
+        hess_lane = jacfwd(grad(merit_fn))
 
     def merit_hess(u, y, c, P):
         return vmap(hess_lane)(u, y, c, P)
@@ -270,6 +296,16 @@ def make_alm_newton_solver(
 
     n_substeps = max(int(scfg.newton_substeps), 1)
 
+    def scaled_residual(u, y, c, P):
+        """Diagonal-Newton stationarity residual in control units (B,): the
+        projected-gradient step with each coordinate scaled by the merit
+        Hessian's diagonal, curvature- and penalty-invariant."""
+        _, g = merit_grad(u, y, c, P)
+        H = merit_hess(u, y, c, P)
+        scale = torch.maximum(torch.abs(torch.diagonal(H, dim1=-2, dim2=-1)),
+                              torch.ones_like(u))
+        return torch.amax(torch.abs(u - proj_box(u - g / scale)), dim=-1)
+
     def solve_fused(u0: torch.Tensor, P) -> NewtonResult:
         """Single-loop ALM: all stages in one loop, with the multiplier /
         penalty updates applied at masked stage boundaries."""
@@ -339,4 +375,65 @@ def make_alm_newton_solver(
             converged=(infeas <= scfg.constraint_tol)
             & ((r_final <= scfg.tol) | settled))
 
-    return solve_fused
+    def inner_solve(u0, y, c, P, n_iters: int):
+        """n_iters LM-Newton iterations at fixed (y, c); a lane stops moving
+        once done.  Returns (u, scaled residual)."""
+        B = u0.shape[0]
+        psi_u, g_u = merit_grad(u0, y, c, P)
+        u = u0
+        lam = torch.full((B,), 1e-3, dtype=dtype, device=device)
+        done = torch.zeros(B, dtype=torch.bool, device=device)
+        for _ in range(n_iters):
+            # One exact Hessian per iteration; the substeps share it, as in
+            # the fused loop.
+            H = merit_hess(u, y, c, P)
+            u_new, lam_new, improved = substep(u, psi_u, g_u, lam, H, y, c,
+                                               done, P)
+            for _ in range(n_substeps - 1):
+                psi_mid, g_mid = merit_grad(u_new, y, c, P)
+                u_new, lam_new, improved = substep(
+                    u_new, psi_mid, g_mid, lam_new, H, y, c, done, P)
+            psi_new, g_new = merit_grad(u_new, y, c, P)
+            r_norm = torch.amax(torch.abs(u_new - proj_box(u_new - g_new)),
+                                dim=-1)
+            done = done | (r_norm <= scfg.tol) | (
+                torch.logical_not(improved) & (lam >= 1e8))
+            u, psi_u, g_u, lam = u_new, psi_new, g_new, lam_new
+        return u, scaled_residual(u, y, c, P)
+
+    def solve(u0: torch.Tensor, P) -> NewtonResult:
+        """Staged ALM: one inner solve per stage, then the multiplier /
+        penalty update; a lane whose stage met the constraint tolerance
+        keeps its iterate through the later stages (per-lane masks)."""
+        B = u0.shape[0]
+        u = proj_box(u0.to(dtype))
+        y = torch.zeros(B, c_lo.shape[0], dtype=dtype, device=device)
+        c = torch.full((B,), scfg.initial_penalty, dtype=dtype, device=device)
+        prev_inf = torch.zeros(B, dtype=dtype, device=device)
+        outer_done = torch.zeros(B, dtype=torch.bool, device=device)
+        r_final = torch.full((B,), float("inf"), dtype=dtype, device=device)
+        y_solved, c_solved = y, c
+        for n_iters in n_stage_iters:
+            u_new, r_norm = inner_solve(u, y, c, P, n_iters)
+            y_new, c_new, inf_new = alm_update(u_new, y, c, prev_inf, P)
+            keep = outer_done
+            y_solved = torch.where(keep[:, None], y_solved, y)
+            c_solved = torch.where(keep, c_solved, c)
+            u = torch.where(keep[:, None], u, u_new)
+            y = torch.where(keep[:, None], y, y_new)
+            c = torch.where(keep, c, c_new)
+            prev_inf = torch.where(keep, prev_inf, inf_new)
+            r_final = torch.where(keep, r_final, r_norm)
+            outer_done = outer_done | (inf_new <= scfg.constraint_tol)
+
+        # As in the JAX package, the probe's residual supersedes r_final.
+        r_final, settled = stationarity_probe(u, y_solved, c_solved, P)
+        f, f1, f2 = objective_b(u, P)
+        viol1 = torch.amax(torch.abs(f1 - proj_rect(f1)), dim=-1)
+        infeas = torch.maximum(viol1, torch.amax(torch.abs(f2), dim=-1))
+        return NewtonResult(
+            u=u, cost=f, residual=r_final, infeasibility=infeas, penalty=c,
+            converged=(infeas <= scfg.constraint_tol)
+            & ((r_final <= scfg.tol) | settled))
+
+    return solve_fused if scfg.fused else solve

@@ -220,6 +220,33 @@ def assemble_dyn_obstacles(humans, prediction, n_slots: int, n_cols: int,
     return dyn
 
 
+def lane_params(cfg: MpcConfiguration, q_vec, base_speed: float, all_polys,
+                all_stc, robot, humans, prediction, u_prev, window,
+                dtype) -> MpcParams:
+    """The solver's MpcParams of every lane (lane dim B first): the robot
+    (B, 3), the pedestrians (B, H, 2) and their prediction, the last action,
+    the reference window (B, N, 3), the nearest static obstacles of
+    `all_polys` / `all_stc`, and the 'work' mode's reference speed and
+    weights."""
+    B, N = robot.shape[0], cfg.N_hor
+
+    def full(shape, value):
+        return torch.full((B,) + shape, value, dtype=dtype,
+                          device=robot.device)
+
+    return MpcParams(
+        u_prev=u_prev, s0=robot, sN=window[:, -1],
+        q=q_vec.expand(B, -1), ref_states=window,
+        ref_speed=full((N,), base_speed),
+        others0=full((cfg.Nother, cfg.ns), 0.0),
+        others_pred=full((cfg.Nother, N, cfg.ns), 0.0),
+        stc_obs=closest_obstacle_halfspaces(all_polys, all_stc, robot,
+                                            cfg.Nstcobs),
+        dyn_obs=assemble_dyn_obstacles(humans, prediction, cfg.Ndynobs,
+                                       cfg.ndynobs, N, dtype),
+        q_stc=full((N,), 10.0), q_dyn=full((N,), 10.0))
+
+
 class Scenario(NamedTuple):
     """Fixed-size tensors describing one episode (batch by stacking).  The
     scenario constructors return numpy arrays; `build_batch_sim`'s `run` moves
@@ -471,7 +498,6 @@ def build_batch_sim(cfg: MpcConfiguration, robot_cfg: CircularRobotSpecification
 
     def assemble_step(sc: Scenario, st: SimState):
         """Pre-solve work: ref window + prediction + params, all lanes."""
-        B = st.robot.shape[0]
         window, ref_idx = ref_window_select(
             sc.ref_traj, sc.ref_len, st.ref_idx, st.robot, N,
             cfg.action_steps)
@@ -482,21 +508,9 @@ def build_batch_sim(cfg: MpcConfiguration, robot_cfg: CircularRobotSpecification
                                             n_valid=st.n_actions)
         else:
             prediction = predictor(st.human_hist)
-
-        def full(shape, value):
-            return torch.full((B,) + shape, value, dtype=dtype, device=device)
-
-        P = MpcParams(
-            u_prev=st.u_prev, s0=st.robot, sN=window[:, -1],
-            q=q_vec.expand(B, -1), ref_states=window,
-            ref_speed=full((N,), base_speed),
-            others0=full((cfg.Nother, cfg.ns), 0.0),
-            others_pred=full((cfg.Nother, N, cfg.ns), 0.0),
-            stc_obs=closest_obstacle_halfspaces(
-                sc.all_polys, sc.all_stc, st.robot, cfg.Nstcobs),
-            dyn_obs=assemble_dyn_obstacles(
-                st.humans, prediction, cfg.Ndynobs, cfg.ndynobs, N, dtype),
-            q_stc=full((N,), 10.0), q_dyn=full((N,), 10.0))
+        P = lane_params(cfg, q_vec, base_speed, sc.all_polys, sc.all_stc,
+                        st.robot, st.humans, prediction, st.u_prev, window,
+                        dtype)
         return P, ref_idx
 
     def apply_step(sc: Scenario, st: SimState, u, solver_ok, overflow,
@@ -659,10 +673,88 @@ def scenario_to_device(sc: Scenario, device, dtype=torch.float32) -> Scenario:
     return Scenario(*[move(x) for x in sc])
 
 
-def build_step_program(*args, **kwargs):
-    raise NotImplementedError(
-        "build_step_program (the fused deployment step) is not ported yet "
-        "(ROADMAP.md, queue A item 11)")
+def build_step_program(cfg: MpcConfiguration,
+                       robot_cfg: CircularRobotSpecification,
+                       solver_cfg: SolverConfiguration | None = None,
+                       predictor=None, dtype=torch.float32, device=None):
+    """One control step for DEPLOYMENT (one robot): prediction -> dynamic
+    obstacle assembly -> reference-window selection -> multistart NMPC
+    solve, the port of `dyobav_tpu.sim.batch.build_step_program`, which
+    `sim.deploy.NavigationNode(fused_step=...)` drives.  Unlike the batched
+    sim there is no simulated world step: the real world advances between
+    ticks.
+
+    The JAX package jits the step into one device program with no host
+    sync inside it.  Here it runs eagerly on `device` (None: the current
+    CUDA device; raises without one) with the lane dim of
+    `build_lane_solvers` set to 1, and a tick syncs with the host once: the
+    multistart's `any_lane(distress)`, which decides whether the cold
+    re-solve runs.  The returned tensors stay on the device.
+
+    predictor: optional `hist (B, 5, H, 2) -> (mu (B, N, K, 2), std (B, N,
+    K, 2), alpha (B, N, K))`, the contract of `build_batch_sim` (e.g.
+    `make_wta_predictor`), called with B = 1; default: the
+    constant-velocity prediction over the whole history ring.
+
+    Returns (step, cold_start):
+      step(sc: Scenario, robot (3,), human_hist (5, H, 2), u_warm, u_prev,
+           ref_idx) -> (action (2,), u_warm_next, ref_idx_next,
+                        converged (), cost ())
+      cold_start(sc, robot, human_hist, u_init) -> u_warm: the episode's
+           first solve at the cold profile (u_init itself without one).
+    `sc` is one scenario (no lane dim), numpy or tensors; the step moves it
+    to `device` (a no-op once it is there).
+    """
+    device = resolve_device(device)
+    scfg = solver_cfg or SolverConfiguration()
+    N = cfg.N_hor
+    base_speed = robot_cfg.lin_vel_max * 0.8
+    q_vec = torch.as_tensor(tuning_vector(cfg), dtype=dtype, device=device)
+    _, cold_solve, _, solve_batch_ms = build_lane_solvers(
+        cfg, robot_cfg, scfg, escalate=True, dtype=dtype, device=device)
+    predict_fn = (predictor if predictor is not None
+                  else lambda hist: cv_predict_horizon(hist, N))
+
+    def as_lane(x, dt=dtype):
+        return torch.as_tensor(x, device=device).to(dt)[None]
+
+    def window_of(sc: Scenario, robot, ref_idx):
+        return ref_window_select(sc.ref_traj[None], sc.ref_len[None],
+                                 ref_idx, robot, N, cfg.action_steps)
+
+    def params(sc: Scenario, robot, human_hist, u_prev, window) -> MpcParams:
+        return lane_params(cfg, q_vec, base_speed, sc.all_polys[None],
+                           sc.all_stc[None], robot, human_hist[:, -1],
+                           predict_fn(human_hist), u_prev, window, dtype)
+
+    def step(sc: Scenario, robot, human_hist, u_warm, u_prev, ref_idx):
+        sc = scenario_to_device(sc, device, dtype)
+        robot, human_hist = as_lane(robot), as_lane(human_hist)
+        u_warm, u_prev = as_lane(u_warm), as_lane(u_prev)
+        window, ref_idx_next = window_of(sc, robot,
+                                         as_lane(ref_idx, torch.long))
+        P = params(sc, robot, human_hist, u_prev, window)
+        res, _ = solve_batch_ms(P, u_warm, u_prev)
+        u = res.u[0]
+        action = u[:2]
+        action = torch.where(action[0] < 0, torch.zeros_like(action), action)
+        u_warm_next = torch.cat([u[2:], u[-2:]])
+        return (action, u_warm_next, ref_idx_next[0], res.converged[0],
+                res.cost[0])
+
+    def cold_start(sc: Scenario, robot, human_hist, u_init):
+        u_init = torch.as_tensor(u_init, device=device).to(dtype)
+        if cold_solve is None:
+            return u_init
+        sc = scenario_to_device(sc, device, dtype)
+        robot, human_hist = as_lane(robot), as_lane(human_hist)
+        window, _ = window_of(sc, robot, torch.zeros(1, dtype=torch.long,
+                                                     device=device))
+        P = params(sc, robot, human_hist,
+                   torch.zeros(1, 2, dtype=dtype, device=device), window)
+        return cold_solve(P, u_init[None]).u[0]
+
+    return step, cold_start
 
 
 def make_wta_predictor(net, ref_map_px, transform, n_hor: int,

@@ -7,8 +7,8 @@
     python -m dyobav_tpu_torch.sim eval --tracker dwa --predictor kfmp
 
 It runs on the current CUDA device and raises without one; `--device cpu`
-asks for the CPU.  The live plot (`--plot`, `--save-plot`; ROADMAP.md,
-queue A item 8b) is not ported yet and raises NotImplementedError.
+asks for the CPU.  The live plot of a demo (`--plot`, or `--save-plot
+PATH` headless) needs matplotlib, imported only then (`sim.plotter`).
 """
 from __future__ import annotations
 
@@ -31,9 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=120)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--plot", action="store_true",
-                   help="live plot (not ported yet)")
+                   help="live plot of a demo (needs matplotlib)")
     p.add_argument("--save-plot", default=None, metavar="PATH",
-                   help="save the final frame as PNG (not ported yet)")
+                   help="render headlessly and save the final frame as PNG")
     p.add_argument("--json", action="store_true", help="print metrics as JSON")
     p.add_argument("--ckpt", default=None,
                    help="SWTA state_dict for the mmp predictor (default: "
@@ -47,10 +47,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.plot or args.save_plot:
-        raise NotImplementedError(
-            "the live plot (sim/plotter.py) is not ported yet (ROADMAP.md, "
-            "queue A item 8b)")
     device = resolve_device(args.device)
     predictor = None if args.predictor in (None, "none") else args.predictor
     evaluation = args.command == "eval"
@@ -72,13 +68,27 @@ def main(argv=None) -> int:
                     mmp_checkpoint=args.ckpt,
                     solver_config=solver_config,
                     verbose=args.verbose, device=device)
-    base.run(args.tracker, predictor)
+    plotter = None
+    if (args.plot or args.save_plot) and not evaluation:
+        if args.save_plot:
+            import matplotlib
+            matplotlib.use("Agg")
+        from .plotter import Plotter
+        plotter = Plotter(base.config_mpc.ts, base.config_mpc.N_hor)
+        plotter.prepare_plots(base.occ_map, base.map_extent)
+    base.run(args.tracker, predictor, plotter=plotter)
 
     if evaluation:
         if args.json:
             print(json.dumps(base.results_summary()))
         else:
             base.print_results()
+    if plotter is not None:
+        if args.save_plot:
+            plotter.fig.savefig(args.save_plot, dpi=120)
+            print(f"saved {args.save_plot}")
+        elif args.plot:
+            plotter.show()
     return 0
 
 

@@ -338,9 +338,10 @@ class MainBase:
 
     # ------------------------------------------------------------------- runs
     def run_once(self, robot, human_list, tracker_interface,
-                 predictor_interface=None, num_run: int = 1):
+                 predictor_interface=None, num_run: int = 1, plotter=None):
         """One episode.  With `verbose` every step prints a line, in an
-        evaluation too (a step of one robot takes seconds on the card)."""
+        evaluation too (a step of one robot takes seconds on the card);
+        a demo renders each step on `plotter` (`sim.plotter.Plotter`)."""
         dyn_clearance_temp = []
         collision = complete = False
         for kt in range(self.max_run_time_step):
@@ -358,8 +359,15 @@ class MainBase:
                     self.collision_results.append(False)
                     break
             else:
-                self.run_one_step(robot, human_list, tracker_interface,
-                                  predictor_interface, verbose=self.vb)
+                out = self.run_one_step(robot, human_list, tracker_interface,
+                                        predictor_interface, verbose=self.vb)
+                if plotter is not None:
+                    (action, pred_states, cost, mu_list_list, std_list_list,
+                     _, the_obs_list, others) = out
+                    plotter.render_step(kt, self, robot, human_list,
+                                        tracker_interface, action, cost,
+                                        pred_states, mu_list_list,
+                                        std_list_list, the_obs_list, others)
                 if tracker_interface.traj_tracker.idle:
                     break
 
@@ -396,7 +404,8 @@ class MainBase:
                 actual_traj=[s[:2] for s in robot.past_traj]))
             self.clearance_dyn_results.append(min(dyn_clearance_temp))
 
-    def run(self, tracker_type: str, predictor_type: str | None = None):
+    def run(self, tracker_type: str, predictor_type: str | None = None,
+            plotter=None):
         tracker_type = tracker_type.lower()
         predictor_type = predictor_type.lower() if predictor_type else None
         n_runs = self.max_num_run if self.eval else 1
@@ -405,7 +414,7 @@ class MainBase:
             tracker_intf, predictor_intf = self._prepare_interfaces(
                 robot, predictor_type, tracker_type)
             self.run_once(robot, human_list, tracker_intf, predictor_intf,
-                          rep)
+                          rep, plotter=plotter)
             # The last episode's agents and interfaces, for the caller.
             self.episode = (robot, human_list, tracker_intf, predictor_intf)
             if self.eval:

@@ -28,14 +28,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def profiled(timed_fn, cuda: bool, n_top: int, host: bool = True):
+def profiled(timed_fn, cuda: bool, n_top: int, host: bool = True,
+             trace_path: str | None = None):
     """Run `timed_fn()` (which returns its own wall seconds, taken around a
     device synchronize) under `torch.profiler`; returns (those seconds,
     {device_kernel_s, spd_kernel_s, spd_share_of_device, device_events,
     kernel_launches, aten_calls, top_device_ms, top_host_ms}).  host=False
     traces the device only: the profiler keeps every event in memory, and
     a run of millions of operators does not fit with the host's events
-    (the host-side counts and rows are then empty)."""
+    (the host-side counts and rows are then empty).  `trace_path` also
+    writes the Chrome trace there."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -43,6 +45,8 @@ def profiled(timed_fn, cuda: bool, n_top: int, host: bool = True):
         [ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts) as prof:
         seconds = timed_fn()
+    if trace_path:
+        prof.export_chrome_trace(trace_path)
     ev = prof.key_averages()
     # Device time is summed over the device's own events (kernels, memcpy,
     # memset) only: an operator's self device time is the time of the

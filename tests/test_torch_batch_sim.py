@@ -137,7 +137,7 @@ def test_sim_defaults_to_cuda_and_unported_raise():
         pytest.skip("a CUDA device is present: the default resolves to it")
     with pytest.raises(RuntimeError, match="CUDA"):
         tb.build_batch_sim(TCFG, TROBOT)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         tb.build_step_program(TCFG, TROBOT)
     with pytest.raises(RuntimeError, match="CUDA"):
         tb.make_wta_predictor(None, np.zeros((4, 5)), None, 20)

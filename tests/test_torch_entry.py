@@ -1,7 +1,7 @@
 """The port's evaluation entry (`python -m dyobav_tpu_torch.sim`) on the
 CPU: its JSON summary carries the JAX package's keys, the DWA tracker and
-the Kalman predictor run, the live plot (not ported) raises naming its
-ROADMAP item, and without `--device` it needs a CUDA device.
+the Kalman predictor run, a demo renders the live plot headless, and
+without `--device` it needs a CUDA device.
 """
 import ast
 import json
@@ -75,16 +75,31 @@ def test_eval_prints_the_jax_summary_keys(capsys):
     (["demo", "--plot"], "item 8b"),
     (["demo", "--save-plot", "frame.png"], "item 8b"),
 ])
-def test_unported_options_raise(argv, match):
+def test_unported_options_raise(argv, match, tmp_path, monkeypatch):
     """The options of ROADMAP item 9 (the DWA tracker, the Kalman
-    predictor) run and return 0 since it was ported; the live plot (item
-    8b) still raises naming its item."""
+    predictor) and of item 8b (the live plot) run and return 0 since they
+    were ported.  A demo step renders its frame on the plot headless
+    (`Agg`); `--save-plot` writes it as a PNG, and `--plot` ends by
+    showing the figure, which `Agg` does without a window.  `match` names
+    the ROADMAP item of the plot cases."""
+    monkeypatch.chdir(tmp_path)
     argv = argv + ["--device", "cpu", "--steps", "1", "--runs", "1"]
     if match is None:
         assert entry.main(argv) == 0
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            entry.main(argv)
+        return
+    import matplotlib
+    import matplotlib.pyplot as plt
+
+    matplotlib.use("Agg")
+    plt.close("all")
+    assert entry.main(argv) == 0
+    fig = plt.gcf()
+    assert len(fig.axes) == 4                     # v, omega, cost, map
+    assert fig.axes[3].get_title() == "Time: 0.00s / 0"
+    if "--save-plot" in argv:
+        with open(tmp_path / "frame.png", "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    plt.close("all")
 
 
 def test_harness_unported_branches_raise():

@@ -13,7 +13,8 @@ def _port_sources():
     scripts = os.path.join(REPO, "scripts")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(scripts, n) for n in os.listdir(scripts)
-        if n.startswith("profile_torch_") and n.endswith(".py")]
+        if (n.startswith("profile_torch_") and n.endswith(".py"))
+        or n == "deploy_latency_torch.py"]
     for root, _, names in os.walk(os.path.join(REPO, "dyobav_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -32,14 +33,17 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) >= 25
-    # The scan covers the per-episode harness, its entry and the baselines.
+    # The scan covers the per-episode harness, its entry, the baselines and
+    # the deployment node with its script.
     rel = {os.path.relpath(p, REPO) for p in files}
     assert {f"dyobav_tpu_torch/{m}.py" for m in (
         "trackers/mpc_tracker", "interfaces/mpc_interface", "motion/agents",
         "motion/models", "predictors/cvmp", "sim/metrics", "sim/harness",
         "sim/entry", "sim/__main__", "ops/panoc", "ops/dwa",
         "trackers/dwa_tracker", "interfaces/dwa_interface", "motion/kalman",
-        "predictors/kfmp")} <= rel
+        "predictors/kfmp", "maps/preset", "sim/deploy", "sim/ros_adapter",
+        "sim/plotter")} <= rel
+    assert "scripts/deploy_latency_torch.py" in rel
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
@@ -66,11 +70,13 @@ def _module_level_imports(path):
 
 def test_port_needs_no_plotting_or_graph_library_to_import():
     """The machine with the card has numpy, scipy and einops, but no
-    networkx, PIL, pandas or matplotlib: no module of the port may import
-    one of them when it is imported."""
+    networkx, PIL, pandas or matplotlib (nor ROS): no module of the port
+    may import one of them when it is imported."""
     bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
            for m in _module_level_imports(p)
-           if m.split(".")[0] in ("networkx", "PIL", "pandas", "matplotlib")]
+           if m.split(".")[0] in ("networkx", "PIL", "pandas", "matplotlib",
+                                  "rospy", "geometry_msgs", "nav_msgs",
+                                  "std_msgs")]
     assert not bad, bad
     # The scan sees what it should: the JAX package's graph module does
     # import networkx at module level.
