@@ -73,7 +73,26 @@ just after:
    fails on a non-finite action, a negative speed, a cmd_vel count other
    than the ticks, or other than two host syncs a tick (the node's one
    copy and the multistart's one sync).  The cold start runs kernel 1 at
-   (1, 4), a tick at (5, 4).
+   (1, 4), a tick at (5, 4);
+9. the decentralized fleet, in PANOC's process after the solver modes:
+   tests/test_fleet.py's head-on corridor at lateral offsets 0.2 and 0.35
+   (two robots, no pedestrian) at the shipped `SolverConfiguration()` for
+   FLEET_REF_STEPS steps on the card against the port's CPU run
+   (`fleet_card_vs_cpu`), then `MainBase` -> `random_fleet_scenarios(base,
+   FLEET_BATCH, n_robots=FLEET_ROBOTS, n_humans=1, seed=0)` ->
+   `build_fleet_sim(..., n_steps=FLEET_STEPS, multistart=True)`
+   (`build_fleet_sim`: 128 solve lanes, all 10 other-robot slots of the
+   parameter vector) and the same at FLEET_WTA_BATCH scenarios for
+   FLEET_WTA_STEPS steps with the neural predictor on the strictly loaded
+   net (`build_fleet_sim[wta]`).  Each fails on a non-finite field, more
+   than 2 % of the robots inside a static polygon, more than 0.5
+   non-converged solves per robot and step, other than one host sync a
+   step, no kernel-1 launch, or fewer than 90 % of the robots that have not
+   collided and whose reference approaches the goal ending 0.1 m nearer
+   it.  The fleet runs kernel 1 at (5 B R, 4), (5 K, 4) with K = max(B R //
+   2, min(B R, 8), 1) and (B R, 4): (640, 4), (320, 4), (128, 4) and
+   (320, 4), (160, 4), (64, 4), all among the shapes the other paths give
+   it, where they are held and timed.
 
 Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
 cache) and one call at a time after a write that evicts the L2 cache
@@ -153,6 +172,14 @@ MODES = (("structured", {"hessian_mode": "structured"}),
          ("jacfwd", {"hessian_mode": "jacfwd"}),
          ("schulz", {"linear_solver": "schulz"}),
          ("staged", {"fused": False}))
+FLEET_BATCH = 32          # scenarios of build_fleet_sim: 128 solve lanes
+FLEET_ROBOTS = 4          # robots a scenario (the solver holds up to 11)
+FLEET_STEPS = 5           # control steps of build_fleet_sim
+FLEET_WTA_BATCH = 16      # scenarios of build_fleet_sim[wta]: 64 lanes,
+                          # 320 images a CNN call
+FLEET_WTA_STEPS = 3       # control steps of it (2 would leave the robots,
+                          # accelerating from rest, under 0.12 m of travel)
+FLEET_REF_STEPS = 3       # control steps of fleet_card_vs_cpu
 CHILD_TIMEOUT_S = 600     # wait for the other processes after paths 1-4
 
 
@@ -389,6 +416,15 @@ def check_kernel(name, source, replaces, kernel, plain, shapes, device,
             "bound_share": share, "library_ms": library_ms})
     entry.update(rows[0], other_shapes=rows[1:])
     return entry
+
+
+def sim_kernel_shapes(lanes: int) -> list:
+    """Kernel 1's shapes in a batched sim of `lanes` solve lanes: the warm
+    multistart (5 candidates a lane), the cold re-solve of the distressed
+    lanes (5 candidates x K slots, K as sim/batch.py takes it) and the
+    step-0 cold pre-solve, each over 4 LM rungs."""
+    K = max(lanes // 2, min(lanes, 8), 1)
+    return [(5 * lanes, 4), (5 * K, 4), (lanes, 4)]
 
 
 def reference_check(cfg, robot, scfg, make_Z, states, u_prev, U0, n_ref):
@@ -1271,16 +1307,187 @@ def drive_panoc_path(device) -> int:
     return launches
 
 
+def fleet_reference_check(device):
+    """Phase fleet_card_vs_cpu: tests/test_fleet.py's head-on corridor at
+    lateral offsets 0.2 and 0.35 (B=2, two robots, no pedestrian) at the
+    shipped budget for FLEET_REF_STEPS steps, on the card against the
+    port's own CPU run."""
+    from dyobav_tpu_torch.configs import (CircularRobotSpecification,
+                                          MpcConfiguration,
+                                          SolverConfiguration)
+    from dyobav_tpu_torch.sim.fleet import (FleetResult, FleetScenario,
+                                            build_fleet_sim)
+    from dyobav_tpu_torch.sim.scenarios import synthetic_fleet_scenario
+
+    cfg, robot = MpcConfiguration(), CircularRobotSpecification()
+    batch = FleetScenario(*[np.stack(x) for x in zip(*[
+        synthetic_fleet_scenario([[0.0, lat, 0.0], [8.0, -lat, np.pi]],
+                                 [[8.0, lat], [0.0, -lat]],
+                                 base_speed=robot.lin_vel_max * 0.8,
+                                 ts=cfg.ts) for lat in (0.2, 0.35)])])
+    out = {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        res = build_fleet_sim(cfg, robot, SolverConfiguration(), n_robots=2,
+                              n_steps=FLEET_REF_STEPS, device=dev)(
+            batch, np.arange(2))
+        out[dev] = ({f: getattr(res, f).cpu().numpy()
+                     for f in FleetResult._fields},
+                    time.perf_counter() - t0)
+    (rg, tg), (rc, tc) = out[device], out["cpu"]
+    dev_m = np.abs(rg["final_states"][..., :2]
+                   - rc["final_states"][..., :2]).max(axis=-1)   # (B, R)
+    inter_dev = float(np.abs(rg["min_inter_robot"]
+                             - rc["min_inter_robot"]).max())
+    flags = ("success", "done", "collided", "steps_used", "solver_fail_steps",
+             "escalation_overflow_steps")
+    flags_equal = all(np.array_equal(rg[f], rc[f]) for f in flags)
+    print(json.dumps({
+        "phase": "fleet_card_vs_cpu", "batch": 2, "robots": 2,
+        "steps": FLEET_REF_STEPS, "final_dev_m": dev_m.tolist(),
+        "min_inter_robot_dev": inter_dev, "flags_equal": flags_equal,
+        "solver_fail_steps": rg["solver_fail_steps"].tolist(),
+        "card_s": tg, "cpu_s": tc}), flush=True)
+    # The two runs share every operation but the SPD kernel (bit for bit
+    # its plain version) and the libraries' rounding.
+    if not (dev_m.max() <= 1e-3 and inter_dev <= 1e-3 and flags_equal):
+        raise AssertionError("card and CPU runs of the fleet disagree")
+
+
+def drive_fleet_path(name, base, B, T, device, predictor=None) -> int:
+    """Path `name`: `build_fleet_sim` over `random_fleet_scenarios(base, B,
+    n_robots=FLEET_ROBOTS, n_humans=1, seed=0)` for T steps at the shipped
+    budget.  Returns kernel 1's launches on it."""
+    import torch
+
+    from dyobav_tpu_torch.configs import SolverConfiguration
+    from dyobav_tpu_torch.ops import engine, spd
+    from dyobav_tpu_torch.sim.batch import point_in_any_quad
+    from dyobav_tpu_torch.sim.fleet import FleetResult, build_fleet_sim
+    from dyobav_tpu_torch.sim.scenarios import random_fleet_scenarios
+
+    R = FLEET_ROBOTS
+    batch = random_fleet_scenarios(base, B, n_robots=R, n_humans=1, seed=0)
+    calls = []
+
+    def timed_predict(hist):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = predictor(hist)
+        end.record()
+        calls.append((start, end))
+        return out
+
+    run = build_fleet_sim(base.config_mpc, base.config_robot,
+                          SolverConfiguration(), n_robots=R, n_steps=T,
+                          multistart=True, device=device,
+                          predictor=timed_predict if predictor else None)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run(batch, np.arange(B))
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    launches = spd.spd_solve.launches
+    syncs = engine.any_lane.syncs + engine.to_host.syncs
+
+    r = {f: getattr(res, f).cpu().numpy() for f in FleetResult._fields}
+    pos = r["final_states"][..., :2]                             # (B, R, 2)
+    inside = point_in_any_quad(
+        torch.as_tensor(pos.reshape(-1, 2)),
+        torch.as_tensor(batch.all_polys).repeat_interleave(R, 0)
+    ).numpy().reshape(B, R)
+    # Robot-robot collisions: a collided robot parks where it collided, as
+    # does the robot it hit, inside the other's disk.
+    gap = np.linalg.norm(pos[:, :, None] - pos[:, None], axis=-1)
+    gap[:, np.arange(R), np.arange(R)] = np.inf
+    robot_robot = r["collided"] & (gap.min(axis=2)
+                                   <= 0.5 * base.config_robot.vehicle_width)
+    goal = batch.goals[..., :2]
+    d_start = np.linalg.norm(batch.robot_starts[..., :2] - goal, axis=-1)
+    d_ref = np.linalg.norm(batch.ref_trajs[:, :, T - 1, :2] - goal, axis=-1)
+    d_final = np.linalg.norm(pos - goal, axis=-1)
+    approaching = ~r["collided"] & (d_ref < d_start - 0.1)
+    nearer = (d_final < d_start - 0.1)[approaching]
+    fail_per_step = float(r["solver_fail_steps"].mean()) / T
+    print(json.dumps({
+        "main_path": name, "scenarios": B, "robots": R, "steps": T,
+        "solve_lanes": B * R, "sim_s": sim_s, "s_per_step": sim_s / T,
+        "control_steps_per_s": B * R * T / sim_s,
+        "solver_fail_steps_per_robot": float(r["solver_fail_steps"].mean()),
+        "escalation_overflow_steps_per_robot": float(
+            r["escalation_overflow_steps"].mean()),
+        "spd_launches": launches, "spd_launches_per_step": launches / T,
+        "host_syncs_per_step": syncs / T,
+        "min_inter_robot_min": float(r["min_inter_robot"].min()),
+        "min_inter_robot_median": float(np.median(r["min_inter_robot"])),
+        "collided": int(r["collided"].sum()),
+        "robot_robot_collided": int(robot_robot.sum()),
+        "inside_static": int(inside.sum()), "done": int(r["done"].sum()),
+        "robots_route_approaches_goal": int(approaching.sum()),
+        "nearer_goal_share": float(nearer.mean()) if nearer.size else None,
+        "min_clearance_min": float(r["min_clearance"].min()),
+        "min_static_clearance_min": float(r["min_static_clearance"].min()),
+        "predictor_ms_per_call": [a.elapsed_time(b) for a, b in calls]}),
+        flush=True)
+    if predictor and len(calls) != T + 1:    # every step and the pre-solve
+        raise AssertionError(f"{name}: {len(calls)} predictor calls")
+    # With several robots, a pedestrian and the map's polygons, every
+    # distance is finite too.
+    for f, val in r.items():
+        if val.shape[0] != B or (val.ndim > 1 and val.shape[1] != R):
+            raise AssertionError(f"{name}: {f} has shape {val.shape}")
+        if val.dtype.kind == "f" and not np.isfinite(val).all():
+            raise AssertionError(f"{name}: non-finite {f}")
+    if inside.mean() > 0.02:
+        raise AssertionError(f"{name}: more than 2 % of the robots ended "
+                             "inside a static polygon")
+    if fail_per_step > 0.5:
+        raise AssertionError(f"{name}: {fail_per_step:.3f} non-converged "
+                             "solves per robot and step")
+    if syncs != T:
+        raise AssertionError(f"{name}: {syncs} host syncs in {T} steps")
+    if launches <= 0:
+        raise AssertionError(f"{name} never launched spd_cholesky")
+    if not nearer.size or nearer.mean() < 0.9:
+        raise AssertionError(f"{name}: {nearer.mean() if nearer.size else 0}"
+                             " of the robots whose reference approaches the "
+                             "goal got 0.1 m nearer it, under 0.9")
+    return launches
+
+
+def fleet_paths(device) -> dict:
+    """Path 9: the fleet's card-vs-CPU check, then `build_fleet_sim` and
+    `build_fleet_sim[wta]`; returns kernel 1's launches by path."""
+    from dyobav_tpu_torch.models.wta_net import load_checkpoint
+    from dyobav_tpu_torch.sim.harness import MainBase
+
+    fleet_reference_check(device)
+    base = MainBase(max_run_time_step=FLEET_STEPS, evaluation=True, seed=0)
+    n_obs = len(base.geo_map.processed_obstacle_list)
+    if n_obs != 55:
+        raise AssertionError(f"fleet: {n_obs} obstacles, expected 55")
+    launches = {"build_fleet_sim": drive_fleet_path(
+        "build_fleet_sim", base, FLEET_BATCH, FLEET_STEPS, device)}
+    net = load_checkpoint(os.path.join(ROOT, "Model",
+                                       "wsd_1t20_full_torch.pt"), device)
+    launches["build_fleet_sim[wta]"] = drive_fleet_path(
+        "build_fleet_sim[wta]", base, FLEET_WTA_BATCH, FLEET_WTA_STEPS,
+        device, predictor=make_wta(base, net, device))
+    return launches
+
+
 def solver_paths(device) -> dict:
     """Path 6, then path 7 (the solver modes, whose CPU references would
-    lengthen the main process, the longest); returns kernel 1's launches
-    by the modes that launch it."""
+    lengthen the main process, the longest), then path 9 (the fleet);
+    returns kernel 1's launches by the paths that launch it."""
     from dyobav_tpu_torch.configs import (CircularRobotSpecification,
                                           MpcConfiguration)
 
     drive_panoc_path(device)
-    return drive_mode_paths(MpcConfiguration(), CircularRobotSpecification(),
-                            device)
+    launches = drive_mode_paths(MpcConfiguration(),
+                                CircularRobotSpecification(), device)
+    launches.update(fleet_paths(device))
+    return launches
 
 
 CHILD_PHASES = {"harness": harness_paths, "solvers": solver_paths}
@@ -1416,25 +1623,22 @@ def main() -> int:
 
     # Each kernel against its plain version at the shapes the paths give
     # it: the solve's warm stage (B, 4 rungs) and escalation stage (K
-    # slots, 4 rungs); the sim's warm multistart stage (5 candidates x
-    # SIM_BATCH lanes, 4 rungs), its cold re-solve of the distressed lanes
-    # (5 candidates x K_sim slots) and its step-0 cold pre-solve (SIM_BATCH
-    # lanes); the neural sim's three stages likewise at WTA_BATCH lanes;
-    # the harness's and the deployment tick's one robot (5 candidates, 4
-    # rungs) and the deployment's cold start (one lane); the second kernel
-    # at the solve's 8192 systems, at its docstring's 512 and at a ragged
-    # 200.  The sims' cold slots are sim/batch.py's
-    # max(B // 2, min(B, 8), 1).
+    # slots, 4 rungs); each batched sim's three stages (`sim_kernel_shapes`)
+    # at SIM_BATCH and WTA_BATCH lanes; the harness's and the deployment
+    # tick's one robot (5 candidates, 4 rungs) and the deployment's cold
+    # start (one lane); the fleets' stages at their scenarios x robots
+    # lanes, all among the others' (the dict keeps each shape once, in
+    # order); the second kernel at the solve's 8192 systems, at its
+    # docstring's 512 and at a ragged 200.
     K = max(BATCH // 16, min(BATCH, 16), 1)
-    K_sim = max(SIM_BATCH // 2, min(SIM_BATCH, 8), 1)
-    K_wta = max(WTA_BATCH // 2, min(WTA_BATCH, 8), 1)
+    shapes = ([(BATCH, 4), (K, 4)] + sim_kernel_shapes(SIM_BATCH)
+              + sim_kernel_shapes(WTA_BATCH) + [(5, 4), (1, 4)]
+              + sim_kernel_shapes(FLEET_BATCH * FLEET_ROBOTS)
+              + sim_kernel_shapes(FLEET_WTA_BATCH * FLEET_ROBOTS))
     entry1 = check_kernel(
         "spd_cholesky", "dyobav_tpu_torch/csrc/spd_cholesky.cu",
         "dyobav_tpu/ops/pallas_spd.py:46", spd.spd_solve,
-        spd.spd_solve_plain,
-        [(BATCH, 4), (K, 4), (5 * SIM_BATCH, 4), (5 * K_sim, 4),
-         (SIM_BATCH, 4), (5 * WTA_BATCH, 4), (5 * K_wta, 4),
-         (WTA_BATCH, 4), (5, 4), (1, 4)], device, PEAKS)
+        spd.spd_solve_plain, list(dict.fromkeys(shapes)), device, PEAKS)
     entry2 = check_kernel(
         "spd_lanes", "dyobav_tpu_torch/csrc/spd_lanes.cu",
         "docs/negative_results/pallas_linalg_lanes.py:30",

@@ -8,11 +8,13 @@ its entry points on a CUDA device unless the caller passes `device="cpu"`.
 Ported so far (the batched NMPC solve in every solver mode, the
 closed-loop batched simulation with the constant-velocity or the SWTA
 neural predictor, the per-episode harness with every tracker and
-predictor, the PANOC method, and the deployment node):
+predictor, the PANOC method, the deployment node, and the decentralized
+multi-robot fleet):
     configs           L0  MpcConfiguration, CircularRobotSpecification,
                           SolverConfiguration, WarehouseSimConfiguration,
                           WtaNetConfiguration, DwaConfiguration
-    motion.models     L1  unicycle and omnidirectional steps, MotionModel
+    motion.models     L1  unicycle and omnidirectional steps, MotionModel,
+                          the reciprocating (back-and-forth) agent
     motion.kalman     L1  Kalman filter and its state spaces
     motion.agents     L1  Human, Robot
     utils.geometry    L1  host-side polygon geometry (numpy)
@@ -38,13 +40,16 @@ predictor, the PANOC method, and the deployment node):
     sim.harness       L5  scenario presets, MainBase (episodes, metrics)
     sim.metrics       L5  clearance, smoothness, deviation, collisions
     sim.entry         L5  python -m dyobav_tpu_torch.sim {demo,eval}
-    sim.scenarios     L5  build_scenario, random_scenarios
+    sim.scenarios     L5  build_scenario, random_scenarios and the fleet
+                          builders (synthetic, map, random)
     sim.batch         L5  build_lane_solvers, build_batch_sim,
                           make_wta_predictor, build_step_program
     sim.deploy        L5  NavigationNode on a Transport (the robot's
                           control node); sim.ros_adapter maps it onto ROS
+    sim.fleet         L5  build_fleet_sim: R robots a scenario, each
+                          avoiding the others' predicted trajectories
     sim.plotter       L5  the demo's live plot (matplotlib, imported lazily)
-    sim.sweep         L5  python -m dyobav_tpu_torch.sim.sweep
+    sim.sweep         L5  python -m dyobav_tpu_torch.sim.sweep [--robots R]
     convert               parameters, configurations, scenarios and the
                           SWTA net's weights from the JAX package
 """

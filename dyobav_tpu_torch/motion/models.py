@@ -2,7 +2,8 @@
 `dyobav_tpu.motion.models`.
 
 state = (x, y, theta); action = (v, omega) for the unicycle and
-(vx, vy, omega) for the omnidirectional model.  The functions take one
+(vx, vy, omega) for the omnidirectional model; the reciprocating model's
+state is a pure function of the time step.  The functions take one
 state and one action; batch them with `torch.func.vmap`.  Each has a numpy
 twin for host-side callers (the simulation's agents), which `MotionModel`
 picks for a state that is not a tensor.
@@ -99,3 +100,51 @@ class OmnidirectionalModel(MotionModel):
     def __init__(self, ts: float):
         super().__init__(omnidirectional_step, 3, 3, ts,
                          np_fn=omnidirectional_step_np)
+
+
+def reciprocating_state(kt, speed, ts: float, p1, p2) -> torch.Tensor:
+    """Preset back-and-forth motion between p1 and p2, starting at p1
+    (reference `reciprocating_model`, motion_model.py:165-186): the position
+    is a pure function of the time step.
+
+    Args:
+        kt: current time step (int or integer tensor).
+        speed: linear speed along the segment (float or 0-d tensor).
+    Returns:
+        (3,) float32 state [x, y, theta].
+
+    The float32 operations follow the JAX package's order: the period, the
+    progress and the two weights as written there give the same rounding
+    at the turnaround.
+    """
+    p1 = torch.as_tensor(p1, dtype=torch.float32)
+    p2 = torch.as_tensor(p2, dtype=torch.float32)
+    period = torch.floor(2.0 * torch.linalg.norm(p1 - p2) / speed / ts) + 1.0
+    progress = torch.remainder(torch.as_tensor(kt), period) / period
+    theta = torch.where(
+        progress < 0.5,
+        torch.atan2(p2[1] - p1[1], p2[0] - p1[0]),
+        torch.atan2(p1[1] - p2[1], p1[0] - p2[0]))
+    w1 = 2.0 * torch.abs(0.5 - progress)
+    w2 = 2.0 * (0.5 - torch.abs(0.5 - progress))
+    xy = w1 * p1 + w2 * p2
+    return torch.cat([xy, theta[None]])
+
+
+class ReciprocatingModel(MotionModel):
+    """Preset reciprocating agent (reference motion_model.py:102-127):
+    `model(kt)` returns the state at time step kt; action = (speed,)."""
+
+    def __init__(self, ts: float, p1: tuple, p2: tuple, speed: float = 1.0):
+        super().__init__(
+            lambda state, action, ts_: reciprocating_state(
+                state, action[0], ts_, p1, p2),
+            3, 1, ts)
+        self.p1, self.p2, self.speed = p1, p2, speed
+
+    def __call__(self, kt, action=None):
+        a = torch.as_tensor([self.speed] if action is None else action)
+        return self.fn(kt, a, self.ts)
+
+    def init_state(self):
+        return torch.tensor([self.p1[0], self.p1[1], 0.0], dtype=torch.float32)

@@ -662,15 +662,16 @@ def build_batch_sim(cfg: MpcConfiguration, robot_cfg: CircularRobotSpecification
     return run
 
 
-def scenario_to_device(sc: Scenario, device, dtype=torch.float32) -> Scenario:
-    """A Scenario of numpy arrays or tensors (single or batched) as tensors
-    on `device`: floating fields in `dtype`, integer fields in int64."""
+def scenario_to_device(sc, device, dtype=torch.float32):
+    """A Scenario or `sim.fleet.FleetScenario` of numpy arrays or tensors
+    (single or batched) as the same tuple of tensors on `device`: floating
+    fields in `dtype`, integer fields in int64."""
     def move(x):
         t = x if torch.is_tensor(x) else torch.tensor(np.asarray(x))
         return t.to(device=device,
                     dtype=dtype if t.is_floating_point() else torch.long)
 
-    return Scenario(*[move(x) for x in sc])
+    return type(sc)(*[move(x) for x in sc])
 
 
 def build_step_program(cfg: MpcConfiguration,

@@ -1,18 +1,21 @@
 """Evaluation sweep over randomized warehouse scenarios, the port of
-`dyobav_tpu.sim.sweep` for one robot on one device.
+`dyobav_tpu.sim.sweep` on one device.
 
 The batched counterpart of `main_eva`: randomized (start, goal,
 pedestrian-seed) episodes run as one batch on the card; the statistics are
 printed as one JSON object with the JAX script's keys.
 
     python -m dyobav_tpu_torch.sim.sweep --n 256 --steps 60
+    python -m dyobav_tpu_torch.sim.sweep --robots 4 --n 32 --steps 60
 
 It runs on the current CUDA device and raises without one; `--device cpu`
 asks for the CPU.  `wall_s_first` is a one-step run that absorbs set-up
 (the kernel build, CUDA library initialisation); `wall_s_steady` is the
-full run, which `control_steps_per_s` is taken from.  The fleet sim
-(`--robots > 1`) and multi-device runs (`--devices`, `--distributed`) are
-not ported yet (ROADMAP.md, queue A items 10 and 13).
+full run, which `control_steps_per_s` is taken from (robots counted).
+`--robots R > 1` runs the decentralized fleet sim (`sim.fleet`), whose
+per-robot statistics are reduced per scenario as the JAX script does.
+Multi-device runs (`--devices`, `--distributed`) are not ported yet
+(ROADMAP.md, queue A item 13).
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=120)
     ap.add_argument("--humans", type=int, default=1)
     ap.add_argument("--robots", type=int, default=1,
-                    help=">1 would switch to the fleet sim (not ported)")
+                    help=">1 switches to the decentralized fleet sim")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--devices", type=int, default=0,
                     help="more than one device is not ported")
@@ -47,9 +50,6 @@ def main(argv=None) -> int:
                          "decision rule (budget-only escalation of the "
                          "warm guess; ~5x cheaper, weaker basin recovery)")
     args = ap.parse_args(argv)
-    if args.robots > 1:
-        ap.exit(2, "--robots > 1: the fleet sim is not ported yet "
-                   "(ROADMAP.md, queue A item 10)\n")
     if args.devices > 1 or args.distributed:
         ap.exit(2, "--devices / --distributed: multi-device sweeps are not "
                    "ported yet (ROADMAP.md, queue A item 13)\n")
@@ -59,14 +59,21 @@ def main(argv=None) -> int:
     from ..configs import SolverConfiguration
     from ..ops.engine import resolve_device
     from .batch import build_batch_sim
+    from .fleet import build_fleet_sim
     from .harness import MainBase
-    from .scenarios import random_scenarios
+    from .scenarios import random_fleet_scenarios, random_scenarios
 
     device = resolve_device(args.device)
     base = MainBase(max_run_time_step=args.steps, evaluation=True,
                     seed=args.seed)
-    batch = random_scenarios(base, args.n, n_humans=args.humans,
-                             seed=args.seed, device=device)
+    fleet = args.robots > 1
+    if fleet:
+        batch = random_fleet_scenarios(base, args.n, n_robots=args.robots,
+                                       n_humans=args.humans, seed=args.seed,
+                                       device=device)
+    else:
+        batch = random_scenarios(base, args.n, n_humans=args.humans,
+                                 seed=args.seed, device=device)
 
     # Default: the shipped production operating point (one configuration
     # everywhere); passing either iteration flag opts into a custom budget.
@@ -83,10 +90,15 @@ def main(argv=None) -> int:
     seeds = np.arange(args.n)
 
     def timed(n_steps):
-        run = build_batch_sim(base.config_mpc, base.config_robot, scfg,
-                              n_humans=args.humans, n_steps=n_steps,
-                              multistart=not args.no_multistart,
-                              device=device)
+        ms = not args.no_multistart
+        if fleet:
+            run = build_fleet_sim(base.config_mpc, base.config_robot, scfg,
+                                  n_robots=args.robots, n_steps=n_steps,
+                                  multistart=ms, device=device)
+        else:
+            run = build_batch_sim(base.config_mpc, base.config_robot, scfg,
+                                  n_humans=args.humans, n_steps=n_steps,
+                                  multistart=ms, device=device)
         t0 = time.perf_counter()
         res = run(batch, seeds)
         if device.type == "cuda":
@@ -100,9 +112,20 @@ def main(argv=None) -> int:
     collided = res.collided.cpu().numpy()
     clearance = res.min_clearance.cpu().numpy()
     static_clear = res.min_static_clearance.cpu().numpy()
+    fail_steps = res.solver_fail_steps.cpu().numpy()
+    steps_used = res.steps_used.cpu().numpy()
     smooth = res.smoothness.cpu().numpy()
     dev_mean = res.deviation_mean.cpu().numpy()
     dev_max = res.deviation_max.cpu().numpy()
+    overflow = res.escalation_overflow_steps.cpu().numpy()
+    if fleet:                                 # per-robot flags
+        collided = collided.any(axis=1)
+        static_clear = static_clear.min(axis=1)
+        fail_steps = fail_steps.sum(axis=1)
+        smooth = smooth.mean(axis=1)
+        dev_mean = dev_mean.mean(axis=1)
+        dev_max = dev_max.max(axis=1)
+        overflow = overflow.sum(axis=1)
 
     out = {
         "n_scenarios": args.n,
@@ -116,9 +139,8 @@ def main(argv=None) -> int:
         "min_static_clearance_mean": float(
             static_clear[np.isfinite(static_clear)].mean())
         if np.isfinite(static_clear).any() else None,
-        "solver_fail_steps_mean": float(
-            res.solver_fail_steps.float().mean()),
-        "steps_used_mean": float(res.steps_used.float().mean()),
+        "solver_fail_steps_mean": float(fail_steps.mean()),
+        "steps_used_mean": float(steps_used.mean()),
         # Reference eval-protocol metrics (main_base.py:483-506): action
         # smoothness [mean|d2v|, mean|d2w|] averaged over episodes, and
         # path-deviation mean/std (over per-episode means) + max (of maxes).
@@ -126,13 +148,16 @@ def main(argv=None) -> int:
         "deviation_mean": float(dev_mean.mean()),
         "deviation_std": float(dev_mean.std()),
         "deviation_max": float(dev_max.max()) if len(dev_max) else None,
-        "escalation_overflow_steps_mean": float(
-            res.escalation_overflow_steps.float().mean()),
+        "escalation_overflow_steps_mean": float(overflow.mean()),
         "wall_s_first": round(first, 2),
         "wall_s_steady": round(steady, 2),
         "control_steps_per_s": round(
             args.n * args.steps * args.robots / steady, 1),
     }
+    if fleet:
+        inter = res.min_inter_robot.cpu().numpy()
+        out["min_inter_robot_mean"] = (float(inter[np.isfinite(inter)].mean())
+                                       if np.isfinite(inter).any() else None)
     print(json.dumps(out))
     return 0
 

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_sim.py              # 256 scenarios, card
     python3 scripts/profile_torch_sim.py --wta        # neural, 64 scenarios
+    python3 scripts/profile_torch_sim.py --robots 4   # fleet, 32 x 4 robots
     python3 scripts/profile_torch_sim.py --device cpu --batch 4
 
 Builds chip_smoke.py's simulation (`random_scenarios(base, B, seed=0)`,
@@ -18,7 +19,10 @@ share of the device time and the host syncs, and the kernels that take the
 most device time.  `--wta` swaps the constant-velocity predictor for the
 SWTA neural one (`make_wta_predictor`, trained net) and also profiles one
 predictor call alone: its device time and its share of the one-step run's
-(which calls it twice: the cold pre-solve and the step).
+(which calls it twice: the cold pre-solve and the step).  `--robots R > 1`
+profiles the decentralized fleet instead (`random_fleet_scenarios(base, B,
+n_robots=R, n_humans=1, seed=0)` -> `build_fleet_sim`), chip_smoke.py's
+`build_fleet_sim` path: B x R solve lanes.
 """
 from __future__ import annotations
 
@@ -38,9 +42,12 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=None,
-                    help="scenarios (default: 256, or 64 with --wta)")
+                    help="scenarios (default: 256, 64 with --wta, 32 "
+                         "with --robots)")
     ap.add_argument("--wta", action="store_true",
                     help="drive the sim with the SWTA neural predictor")
+    ap.add_argument("--robots", type=int, default=1,
+                    help=">1 profiles the fleet sim with this many robots")
     ap.add_argument("--device", default=None,
                     help="default: the current CUDA device")
     ap.add_argument("--top", type=int, default=12)
@@ -52,16 +59,23 @@ def main() -> int:
     from dyobav_tpu_torch.configs import SolverConfiguration
     from dyobav_tpu_torch.ops import engine, spd
     from dyobav_tpu_torch.sim.batch import build_batch_sim
+    from dyobav_tpu_torch.sim.fleet import build_fleet_sim
     from dyobav_tpu_torch.sim.harness import MainBase
-    from dyobav_tpu_torch.sim.scenarios import random_scenarios
+    from dyobav_tpu_torch.sim.scenarios import (random_fleet_scenarios,
+                                                random_scenarios)
     from profile_torch_solve import profiled
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = engine.resolve_device(args.device)
     cuda = dev.type == "cuda"
-    n = args.batch or (64 if args.wta else 256)
+    fleet = args.robots > 1
+    n = args.batch or (64 if args.wta else 32 if fleet else 256)
     base = MainBase(evaluation=True, seed=0)
-    batch = random_scenarios(base, n, seed=0, device=dev)
+    if fleet:
+        batch = random_fleet_scenarios(base, n, n_robots=args.robots,
+                                       n_humans=1, seed=0, device=dev)
+    else:
+        batch = random_scenarios(base, n, seed=0, device=dev)
     seeds = np.arange(n)
     predictor = None
     if args.wta:
@@ -72,10 +86,17 @@ def main() -> int:
             ROOT, "Model", "wsd_1t20_full_torch.pt"), dev), dev)
 
     def timed(n_steps):
-        run = build_batch_sim(base.config_mpc, base.config_robot,
-                              SolverConfiguration(), n_steps=n_steps,
-                              multistart=True, predictor=predictor,
-                              device=dev)
+        if fleet:
+            run = build_fleet_sim(base.config_mpc, base.config_robot,
+                                  SolverConfiguration(),
+                                  n_robots=args.robots, n_steps=n_steps,
+                                  multistart=True, predictor=predictor,
+                                  device=dev)
+        else:
+            run = build_batch_sim(base.config_mpc, base.config_robot,
+                                  SolverConfiguration(), n_steps=n_steps,
+                                  multistart=True, predictor=predictor,
+                                  device=dev)
         if cuda:
             torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -113,7 +134,7 @@ def main() -> int:
     print(json.dumps({
         "card": card_line() if cuda else "cpu",
         "predictor": "wta" if args.wta else "cv",
-        "scenarios": n,
+        "scenarios": n, "robots": args.robots,
         "one_step_run_s": one_s, "three_step_run_s": three_s,
         "step_s": step_s, "cold_presolve_s": one_s - step_s,
         "profiled_one_step_run_s": prof_s,

@@ -33,8 +33,8 @@ def _imported_modules(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) >= 25
-    # The scan covers the per-episode harness, its entry, the baselines and
-    # the deployment node with its script.
+    # The scan covers the per-episode harness, its entry, the baselines,
+    # the deployment node with its script and the fleet.
     rel = {os.path.relpath(p, REPO) for p in files}
     assert {f"dyobav_tpu_torch/{m}.py" for m in (
         "trackers/mpc_tracker", "interfaces/mpc_interface", "motion/agents",
@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "sim/entry", "sim/__main__", "ops/panoc", "ops/dwa",
         "trackers/dwa_tracker", "interfaces/dwa_interface", "motion/kalman",
         "predictors/kfmp", "maps/preset", "sim/deploy", "sim/ros_adapter",
-        "sim/plotter")} <= rel
+        "sim/plotter", "sim/fleet")} <= rel
     assert "scripts/deploy_latency_torch.py" in rel
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)

@@ -112,10 +112,10 @@ def test_scenario_moves_to_tensors(bases):
 
 
 def test_unported_parts_raise():
-    """What is still not ported raises and names its ROADMAP item: the fleet
-    (item 10); an invalid scenario raises too.  The parts of item 9 run
-    now: a DWA episode with the cvmp predictor through `run` on the
-    scenarios' map, and the Kalman predictor's interfaces."""
+    """An invalid scenario raises.  What once raised here runs now: a DWA
+    episode with the cvmp predictor through `run` on the scenarios' map
+    and the Kalman predictor's interfaces (item 9), and the fleet
+    scenarios (item 10, tests/test_torch_fleet.py)."""
     tbase = th.MainBase(max_run_time_step=3, evaluation=True, seed=0,
                         device="cpu")
     robot, _ = tbase._prepare_agents()
@@ -125,7 +125,5 @@ def test_unported_parts_raise():
     intf, pred = tbase._prepare_interfaces(robot, "kfmp", "mpc")
     positions, _ = pred.get_motion_prediction([[0.0, 0.0], [0.1, 0.0]])
     assert len(positions) == 20 and positions[-1][0] > 0.1
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ts.random_fleet_scenarios(tbase, 2)
     with pytest.raises(ValueError, match="Invalid scenario"):
         th.scenario(3)

@@ -1,6 +1,7 @@
 """The port's sweep script (`python -m dyobav_tpu_torch.sim.sweep`) on the
-CPU at a tiny size: it prints the JAX script's JSON keys, refuses what is
-not ported, and does not run on the CPU unless asked to.
+CPU at a tiny size: it prints the JAX script's JSON keys, for one robot
+and for the fleet, refuses what is not ported, and does not run on the CPU
+unless asked to.
 """
 import ast
 import functools
@@ -34,15 +35,18 @@ def jax_sweep_keys():
     return [k.value for k in last.keys]
 
 
-def test_sweep_main_prints_the_jax_keys(capsys, monkeypatch):
+def small_budget(monkeypatch):
     # The script builds its SolverConfiguration itself; give it a small cold
     # and escalation budget here, where only what it prints is under test.
     monkeypatch.setattr(tconfigs, "SolverConfiguration", functools.partial(
         tconfigs.SolverConfiguration, cold_profile=(2, 1, 1, 1, 10.0),
         escalation_ladder=((2, 1, 1, 1, 10.0),)))
-    rc = tsweep.main(["--device", "cpu", "--n", "2", "--steps", "2",
-                      "--inner-iters", "2", "--outer-iters", "1",
-                      "--no-multistart"])
+    return ["--device", "cpu", "--n", "2", "--steps", "2", "--inner-iters",
+            "2", "--outer-iters", "1", "--no-multistart"]
+
+
+def test_sweep_main_prints_the_jax_keys(capsys, monkeypatch):
+    rc = tsweep.main(small_budget(monkeypatch))
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     # The keys dyobav_tpu/sim/sweep.py prints for one robot on one host.
@@ -52,13 +56,29 @@ def test_sweep_main_prints_the_jax_keys(capsys, monkeypatch):
     assert out["n_scenarios"] == 2 and out["devices"] == 1
     assert out["robots"] == 1 and out["steps_used_mean"] == 2.0
     assert np.isfinite(out["deviation_mean"])
-    for argv, item in ((["--robots", "2"], "item 10"),
-                       (["--devices", "4"], "item 13"),
-                       (["--distributed"], "item 13")):
+    for argv in (["--devices", "4"], ["--distributed"]):
         with pytest.raises(SystemExit) as exc:
             tsweep.main(["--device", "cpu"] + argv)
         assert exc.value.code == 2
-        assert item in capsys.readouterr().err
+        assert "item 13" in capsys.readouterr().err
+
+
+def test_sweep_fleet_prints_the_jax_keys(capsys, monkeypatch):
+    """`--robots 2` runs the fleet: the JAX script's keys and its fleet key,
+    the per-robot statistics reduced per scenario, robots counted in the
+    rate."""
+    rc = tsweep.main(small_budget(monkeypatch) + ["--robots", "2"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(out) == jax_sweep_keys() + ["min_inter_robot_mean"]
+    assert out["n_scenarios"] == 2 and out["robots"] == 2
+    assert out["steps_used_mean"] == 2.0
+    assert np.isfinite(out["min_inter_robot_mean"])
+    assert np.isfinite(out["min_static_clearance_mean"])
+    assert 0.0 <= out["collision_rate"] <= 1.0
+    # 2 scenarios x 2 steps x 2 robots over the full run's wall time.
+    assert out["control_steps_per_s"] == pytest.approx(
+        2 * 2 * 2 / out["wall_s_steady"], rel=0.01, abs=0.06)
 
 
 def test_sweep_defaults_to_cuda():
