@@ -94,6 +94,28 @@ just after:
    (320, 4), (160, 4), (64, 4), all among the shapes the other paths give
    it, where they are held and timed.
 
+10. the SWTA training stack, in a fourth process beside the others, on a
+   synthetic WSD-format dataset written to a temporary directory (walks on
+   the real map's free space from a seed; the 1.77 M-sample set is not in
+   the repository): one `NetworkManager._train_step_fused` at full width
+   (7 x 293 x 330, TRAIN_REF_BATCH images) on the card against the port's
+   CPU run from one seeded init (`train_card_vs_cpu`, TF32 off: in float32
+   the loss within 1e-4 relative, each parameter's gradient within
+   TRAIN_GRAD_RL2 in relative L2 (float32 gradients are 1e-3 to 1e-2 from
+   float64 at this size on either device), the BatchNorm statistics
+   within 1e-5; in float64 within 1e-10, 1e-6 and 1e-8), then `python -m
+   dyobav_tpu_torch.models.train` through `main(argv)` at batch 20:
+   TRAIN_EPOCHS epochs of the device loop in chunks of TRAIN_CHUNK steps
+   and a host-paced run (`train[wta]`; it fails on a non-finite loss, on
+   a last-chunk mean not below the first's, on other than one host sync a
+   chunk, on a kernel-1 launch (training solves no linear system), or if
+   the written `.pt` does not load through `load_checkpoint`, give the
+   manager's hypotheses and run one `make_wta_predictor` call), and a few
+   timed steps of each MDN net (`train[mdn]`, `train[mdnfit]`) on the
+   synthetic images with the standard-normal labels of
+   tests/test_models.py's MDN tests: the reference's mixture NLL is +inf
+   at a fresh init on labels in pixels, in both packages.
+
 Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
 cache) and one call at a time after a write that evicts the L2 cache
 (`ms_cold`); `bound_share` is its bound over `ms_cold` and fails above
@@ -180,6 +202,16 @@ FLEET_WTA_BATCH = 16      # scenarios of build_fleet_sim[wta]: 64 lanes,
 FLEET_WTA_STEPS = 3       # control steps of it (2 would leave the robots,
                           # accelerating from rest, under 0.12 m of travel)
 FLEET_REF_STEPS = 3       # control steps of fleet_card_vs_cpu
+TRAIN_SYNTH = dict(n_videos=2, n_peds=4, n_frames=40, seed=0)
+                          # synthetic WSD walks on the real map: 4080
+                          # samples, 3264 to train (163 steps an epoch)
+TRAIN_BATCH = 20          # WtaNetConfiguration.batch_size, the recipe's
+TRAIN_EPOCHS = 2          # device-loop epochs of train[wta] (k_top 20, 1)
+TRAIN_CHUNK = 20          # optimizer steps a host sync in the device loop
+TRAIN_HOST_STEPS = 10     # steps an epoch of train[wta]'s host-paced run
+TRAIN_REF_BATCH = 4       # images of train_card_vs_cpu
+TRAIN_WARMUP, TRAIN_TIMED = 5, 20   # steps before / in a timed window
+TRAIN_GRAD_RL2 = 2e-2     # train_card_vs_cpu: float32 gradient bound
 CHILD_TIMEOUT_S = 600     # wait for the other processes after paths 1-4
 
 
@@ -1490,7 +1522,267 @@ def solver_paths(device) -> dict:
     return launches
 
 
-CHILD_PHASES = {"harness": harness_paths, "solvers": solver_paths}
+def train_card_vs_cpu(dh, ref_map, device):
+    """One `_train_step_fused` at full width from one seeded init on the
+    card and on the CPU (TF32 off), in float32 and in float64: loss,
+    gradients, BatchNorm statistics.  At this size float32 gradients are
+    ill-conditioned (a loss of ~1e4 on labels hundreds of pixels from a
+    fresh net, sums through 37 BatchNorm layers, a map channel in 0-255):
+    each device's float32 is 1e-3 to 1e-2 in relative L2 from float64, so
+    float32 is held within TRAIN_GRAD_RL2 and float64 within 1e-6 (losses
+    1e-4 and 1e-10, statistics 1e-5 and 1e-8)."""
+    import torch
+
+    from dyobav_tpu_torch.configs import WtaNetConfiguration
+    from dyobav_tpu_torch.models.manager import NetworkManager
+
+    batch = dh.next_batch()
+
+    def step(dev, dtype):
+        mgr = NetworkManager(WtaNetConfiguration(), seed=0, verbose=False,
+                             device=dev)
+        mgr.build_network()
+        mgr.net.to(dtype)
+        t0 = time.perf_counter()
+        loss = mgr._train_step_fused(batch["traj"], batch["offset"],
+                                     batch["label"], ref_map, 1).item()
+        return (loss, time.perf_counter() - t0,
+                {k: p.grad.cpu().double()
+                 for k, p in mgr.net.named_parameters()},
+                {k: v.cpu().double() for k, v in mgr.net.state_dict().items()
+                 if "running" in k})
+
+    def rel(a, b):
+        return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+    runs = {(dev, dt): step(dev, dt) for dev in (device, "cpu")
+            for dt in (torch.float32, torch.float64)}
+    line = {"phase": "train_card_vs_cpu", "images": TRAIN_REF_BATCH}
+    gaps = {}
+    for dt, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        card, cpu = runs[(device, dt)], runs[("cpu", dt)]
+        grad = {k: rel(card[2][k], cpu[2][k]) for k in cpu[2]}
+        worst = max(grad, key=grad.get)
+        gaps[name] = (abs(card[0] - cpu[0]) / abs(cpu[0]), grad[worst],
+                      max(rel(card[3][k], cpu[3][k]) for k in cpu[3]))
+        line.update({
+            f"{name}_loss_card": card[0], f"{name}_loss_cpu": cpu[0],
+            f"{name}_loss_rel": gaps[name][0],
+            f"{name}_grad_rel_l2_max": grad[worst],
+            f"{name}_grad_rel_l2_max_param": worst,
+            f"{name}_grad_rel_l2_median": float(np.median(list(
+                grad.values()))),
+            f"{name}_batch_stats_rel_l2_max": gaps[name][2],
+            f"{name}_card_s": card[1], f"{name}_cpu_s": cpu[1]})
+    ref = runs[("cpu", torch.float64)][2]
+    for dev in (device, "cpu"):
+        g = runs[(dev, torch.float32)][2]
+        line[f"f32_{'card' if dev == device else 'cpu'}_vs_f64_grad_max"] = \
+            max(rel(g[k], ref[k]) for k in ref)
+    print(json.dumps(line), flush=True)
+    loss32, grad32, stats32 = gaps["f32"]
+    loss64, grad64, stats64 = gaps["f64"]
+    if not (np.isfinite(line["f32_loss_card"]) and loss32 <= 1e-4
+            and loss64 <= 1e-10):
+        raise AssertionError(f"train: card and CPU losses part: {gaps}")
+    if grad32 > TRAIN_GRAD_RL2 or grad64 > 1e-6:
+        raise AssertionError(f"train: card and CPU gradients part: {gaps}")
+    if stats32 > 1e-5 or stats64 > 1e-8:
+        raise AssertionError(f"train: BatchNorm statistics part: {gaps}")
+
+
+def timed_steps(mgr, batches, ref_map, k_top=1) -> tuple[float, list]:
+    """Mean ms a `_train_step_fused` (CUDA events) over the last
+    TRAIN_TIMED of `batches` (trajectories, offsets, labels), staged on the
+    device first as the device loop stages them, after TRAIN_WARMUP; and
+    every step's loss."""
+    import torch
+
+    ref = torch.as_tensor(ref_map, device=mgr.device)
+    staged = [tuple(torch.as_tensor(a, device=mgr.device) for a in b)
+              for b in batches]
+    losses = []
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for i, (t, o, y) in enumerate(staged):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            start.record()
+        losses.append(mgr._train_step_fused(t, o, y, ref, k_top))
+    end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / (len(staged) - TRAIN_WARMUP),
+            [float(v) for v in torch.stack(losses).cpu()])
+
+
+def drive_train_path(data, tmp, dh, ref_map, device):
+    """`train[wta]`: the CLI at batch 20 on the card, the device loop and
+    the host loop, then its checkpoint; and a timed window of steps."""
+    import torch
+
+    from dyobav_tpu_torch.configs import WtaNetConfiguration
+    from dyobav_tpu_torch.models import train
+    from dyobav_tpu_torch.models.manager import NetworkManager
+    from dyobav_tpu_torch.models.wta_net import full_f32, load_checkpoint
+    from dyobav_tpu_torch.ops import engine, spd
+    from dyobav_tpu_torch.sim.harness import MainBase
+
+    out = os.path.join(tmp, "wsd_smoke")
+    argv = ["--data", data, "--out", out, "--batch-size", str(TRAIN_BATCH),
+            "--epochs", str(TRAIN_EPOCHS), "--chunk-steps", str(TRAIN_CHUNK)]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, syncs = spd.spd_solve.launches, engine.to_host.syncs
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with open(out + "_profile.json") as f:
+        prof = json.load(f)
+    n_train = len(dh.train_idx)
+    chunks = n_train // TRAIN_BATCH // TRAIN_CHUNK
+    loss, val = np.array(prof["loss"]), np.array(prof["val_loss"])
+    reset_counts()
+    t0 = time.perf_counter()
+    train.main(["--data", data, "--out", out + "_host", "--batch-size",
+                str(TRAIN_BATCH), "--epochs", "2", "--device-loop", "0",
+                "--steps-per-epoch", str(TRAIN_HOST_STEPS), "--val-every",
+                "5", "--recalibrate-bn", "0"])
+    host_wall = time.perf_counter() - t0
+    host_launches, host_syncs = spd.spd_solve.launches, engine.to_host.syncs
+    with open(out + "_host_profile.json") as f:
+        host_loss = np.array(json.load(f)["loss"])
+
+    # The written checkpoint: strictly loaded, the manager's hypotheses,
+    # one predictor call.
+    net = load_checkpoint(out + ".pt", device)
+    mgr = NetworkManager(WtaNetConfiguration(), verbose=False, device=device)
+    mgr.load_checkpoint(out + ".pt")
+    b = dh.next_batch()
+    images = mgr._images(b["traj"], b["offset"], ref_map)
+    with torch.no_grad(), full_f32():
+        hyp_net = net(images).cpu().numpy()
+    hyp_mgr = mgr.inference(images)
+    ckpt_dev = float(np.abs(hyp_net - hyp_mgr).max())
+    base = MainBase(max_run_time_step=3, evaluation=True, seed=0,
+                    device=device)
+    hist = torch.tensor([[[[-2.0 + 0.2 * i, -5.0]] for i in range(5)]],
+                        device=device)
+    mu, std, alpha = make_wta(base, net, device)(hist)
+    pred_ok = bool(torch.isfinite(mu).all() and torch.isfinite(std).all()
+                   and torch.isfinite(alpha).all())
+
+    # A timed window of the device loop's step at batch 20.
+    mgr = NetworkManager(WtaNetConfiguration(), verbose=False, device=device)
+    mgr.build_network()
+    staged = [dh.next_batch() for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    ms, _ = timed_steps(mgr, [(x["traj"], x["offset"], x["label"])
+                              for x in staged], ref_map)
+    gflop = conv_net_flops(mgr.net, (7,) + tuple(ref_map.shape)) / 1e9
+    print(json.dumps({
+        "main_path": "train[wta]", "batch": TRAIN_BATCH,
+        "epochs": TRAIN_EPOCHS, "train_samples": n_train,
+        "steps": chunks * TRAIN_CHUNK * TRAIN_EPOCHS, "chunks": len(loss),
+        "cli_wall_s": wall, "ms_per_step": ms,
+        "samples_per_s": TRAIN_BATCH / ms * 1e3,
+        "forward_gflop_per_image": gflop,
+        "tflop_per_s": 3 * gflop * TRAIN_BATCH / ms,      # GFLOP/ms
+        "peak_device_gb": peak_gb,
+        "host_syncs_per_chunk": (syncs - TRAIN_EPOCHS) / len(loss),
+        "loss_first20_mean": float(loss[0]),
+        "loss_last20_mean": float(loss[-1]),
+        "loss_epoch1_last20_mean": float(loss[chunks - 1]),
+        "val_loss": val.tolist(), "spd_launches": launches,
+        "host_loop_wall_s": host_wall, "host_loop_steps": len(host_loss),
+        "host_loop_syncs": host_syncs, "host_loop_loss": host_loss.tolist(),
+        "checkpoint_vs_manager_max_dev_px": ckpt_dev,
+        "predictor_ok": pred_ok}), flush=True)
+    if not (np.isfinite(loss).all() and np.isfinite(host_loss).all()
+            and np.isfinite(val).all()):
+        raise AssertionError("train[wta]: a non-finite loss")
+    if len(loss) != chunks * TRAIN_EPOCHS or len(host_loss) != 2 * \
+            TRAIN_HOST_STEPS:
+        raise AssertionError(f"train[wta]: {len(loss)} chunk losses, "
+                             f"{len(host_loss)} host-loop losses")
+    if not (loss[-1] < loss[0] and loss[chunks - 1] < loss[0]):
+        raise AssertionError("train[wta]: the last 20 steps' mean loss is "
+                             "not below the first 20's")
+    if syncs != len(loss) + TRAIN_EPOCHS:      # a chunk each + validation
+        raise AssertionError(f"train[wta]: {syncs} host syncs for "
+                             f"{len(loss)} chunks")
+    if launches or host_launches:
+        raise AssertionError("train[wta] launched spd_cholesky")
+    if not (ckpt_dev <= 1e-5 and pred_ok):
+        raise AssertionError(f"train[wta]: the checkpoint's net is "
+                             f"{ckpt_dev} px from the manager's, or the "
+                             "predictor gave a non-finite field")
+
+
+def drive_train_mdn_path(kind, dh, ref_map, device):
+    """`train[mdn]` / `train[mdnfit]`: a timed window of full-width steps
+    at batch 20 on the synthetic images, with standard-normal labels (those
+    of tests/test_models.py's MDN tests)."""
+    from dyobav_tpu_torch.configs import WtaNetConfiguration
+    from dyobav_tpu_torch.models import losses
+    from dyobav_tpu_torch.models import mdn
+    from dyobav_tpu_torch.models.manager import NetworkManager
+
+    net, loss = {"mdn": (mdn.ConvMixtureDensityNet(), losses.mdn_nll_loss),
+                 "mdnfit": (mdn.ConvMultiHypoMixtureDensityFit(),
+                            losses.smdn_nll_loss)}[kind]
+    mgr = NetworkManager(WtaNetConfiguration(), net=net, loss=loss,
+                         verbose=False, device=device)
+    mgr.build_network()
+    rng = np.random.default_rng(1)
+    staged = [dh.next_batch() for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    ms, vals = timed_steps(mgr, [
+        (x["traj"], x["offset"],
+         rng.normal(size=(TRAIN_BATCH, 2)).astype(np.float32))
+        for x in staged], ref_map)
+    gflop = conv_net_flops(mgr.net, (7,) + tuple(ref_map.shape)) / 1e9
+    print(json.dumps({
+        "main_path": f"train[{kind}]", "batch": TRAIN_BATCH,
+        "steps": len(vals), "ms_per_step": ms,
+        "samples_per_s": TRAIN_BATCH / ms * 1e3,
+        "tflop_per_s": 3 * gflop * TRAIN_BATCH / ms,      # GFLOP/ms
+        "loss_first": vals[0], "loss_last": vals[-1]}), flush=True)
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"train[{kind}]: a non-finite loss")
+
+
+def train_paths(device) -> dict:
+    """Path 10: the training stack on a synthetic WSD dataset; launches no
+    kernel (returns no launch counts)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dyobav_tpu_torch.models.data import (DataHandler, WsdDataset,
+                                              write_synthetic_wsd)
+
+    torch.set_num_threads(2)        # the CPU runs of train_card_vs_cpu
+    tmp = tempfile.mkdtemp(prefix="wsd_smoke_")
+    try:
+        data = write_synthetic_wsd(
+            os.path.join(tmp, "data"),
+            os.path.join(ROOT, "data", "warehouse_sim_original", "label.png"),
+            **TRAIN_SYNTH)
+        ds = WsdDataset(data)
+        ref_map = ds.ref_map(ds.samples[0].video)
+        train_card_vs_cpu(DataHandler(ds, batch_size=TRAIN_REF_BATCH, seed=3),
+                          ref_map, device)
+        dh = DataHandler(ds, batch_size=TRAIN_BATCH, seed=0)
+        drive_train_path(data, tmp, dh, ref_map, device)
+        for kind in ("mdn", "mdnfit"):
+            drive_train_mdn_path(kind, dh, ref_map, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {}
+
+
+CHILD_PHASES = {"harness": harness_paths, "solvers": solver_paths,
+                "train": train_paths}
 
 
 def child_main(results, name: str, device: str) -> None:
@@ -1646,9 +1938,10 @@ def main() -> int:
         spd_lanes.batched_spd_solve_plain,
         [(LANES_BATCH,), (512,), (200,)], device, PEAKS)
 
-    # The harness's paths with the deployment node, and PANOC's with the
-    # solver modes, run in two more processes beside the others (their
-    # launch counts are their own), started once the kernels are timed.
+    # The harness's paths with the deployment node, PANOC's with the solver
+    # modes and the fleet, and the training stack run in three more
+    # processes beside the others (their launch counts are their own),
+    # started once the kernels are timed.
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     children = [ctx.Process(target=child_main, args=(results, name, "cuda:0"))
@@ -1680,6 +1973,7 @@ def main() -> int:
             raise AssertionError(f"a child process exited {child.exitcode}")
     launches.update(payloads["harness"])
     launches.update(payloads["solvers"])
+    launches.update(payloads["train"])
 
     entry1["launches"] = sum(launches.values())
     entry1["launches_by_path"] = launches

@@ -8,8 +8,8 @@ its entry points on a CUDA device unless the caller passes `device="cpu"`.
 Ported so far (the batched NMPC solve in every solver mode, the
 closed-loop batched simulation with the constant-velocity or the SWTA
 neural predictor, the per-episode harness with every tracker and
-predictor, the PANOC method, the deployment node, and the decentralized
-multi-robot fleet):
+predictor, the PANOC method, the deployment node, the decentralized
+multi-robot fleet, and the SWTA / MDN training stack):
     configs           L0  MpcConfiguration, CircularRobotSpecification,
                           SolverConfiguration, WarehouseSimConfiguration,
                           WtaNetConfiguration, DwaConfiguration
@@ -18,11 +18,17 @@ multi-robot fleet):
     motion.kalman     L1  Kalman filter and its state spaces
     motion.agents     L1  Human, Robot
     utils.geometry    L1  host-side polygon geometry (numpy)
+    utils.density     L1  Parzen and Gaussian-mixture densities
     maps.*            L2  PGM and PNG readers, blobs, occupancy /
                           geometric maps, transforms, navigation graph (no
                           networkx, no imaging library), preset maps
     models.wta_net    L2  ConvMultiHypoNet (SWTA CNN), load_checkpoint
     models.heatmap    L2  heat-map input stacks
+    models.mdn        L2  MDN heads and nets
+    models.losses     L2  WTA meta-losses, mixture NLL
+    models.data       L2  WSD dataset, DataHandler, synthetic WSD data
+    models.manager    L2  NetworkManager: training loops, checkpoints
+    models.train      L2  python -m dyobav_tpu_torch.models.train
     ops.params        L3  flat parameter vector <-> MpcParams
     ops.costs         L3  objective, constraints, block curvature
     ops.spd           L3  batched SPD solve (CUDA kernel csrc/spd_cholesky.cu)
@@ -51,7 +57,8 @@ multi-robot fleet):
     sim.plotter       L5  the demo's live plot (matplotlib, imported lazily)
     sim.sweep         L5  python -m dyobav_tpu_torch.sim.sweep [--robots R]
     convert               parameters, configurations, scenarios and the
-                          SWTA net's weights from the JAX package
+                          SWTA / MDN nets' weights (or gradients) from
+                          the JAX package
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,12 @@
 """Typed configuration for the PyTorch port (L0).
 
 A copy of the configuration families the NMPC solve, the batched
-simulation, the DWA tracker and the SWTA predictor need, with the same
-field names and defaults as `dyobav_tpu.configs` (but for
-`WtaNetConfiguration.model_path`, which names the torch checkpoint), so the
-reference YAML files and the JAX package's `to_dict()` output load
-unchanged.  The port
-keeps its own copy rather than importing the JAX package's module.
+simulation, the DWA tracker and the SWTA predictor and its training need,
+with the same field names and defaults as `dyobav_tpu.configs` (but for
+`WtaNetConfiguration.model_path`, which names the torch checkpoint, and
+its `device`, "cuda"), so the reference YAML files and the JAX package's
+`to_dict()` output load unchanged.  The port keeps its own copy rather
+than importing the JAX package's module.
 `yaml` is imported only by the functions that read or write YAML.
 """
 from __future__ import annotations
@@ -27,6 +27,15 @@ def _load_yaml(path: str, multi_doc: bool = False) -> dict:
                     merged.update(doc)
             return merged
         return yaml.safe_load(stream) or {}
+
+
+def save_yaml_all(docs, yaml_path: str) -> None:
+    """Write a multi-document YAML (`---`-separated), as the reference's
+    `utils_yaml.to_yaml_all` (utils/utils_yaml.py:50-55)."""
+    import yaml
+
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump_all(docs, f, explicit_start=True, sort_keys=False)
 
 
 class _YamlConfig:
@@ -166,19 +175,57 @@ class DwaConfiguration(_YamlConfig):
 
 @dataclass(frozen=True)
 class WtaNetConfiguration(_YamlConfig):
-    """The SWTA predictor net's fields that inference reads (ref
-    `configs.py:106-137`; the JAX package's class also carries the training
-    fields).  `model_path` is the torch `state_dict` of the trained net,
-    relative to the repository root."""
+    """SWTA predictor net + training config (ref `configs.py:106-137`),
+    field for field the JAX package's class, loaded from the
+    multi-document YAML with `with_partition=True`.
 
+    Two defaults differ: `device` is "cuda" (the port's entry points run
+    on the card), and `model_path` names the torch `state_dict` of the
+    trained net, relative to the repository root, the port's checkpoint
+    format (`models/wta_net.load_checkpoint`)."""
+
+    device: str = "cuda"
     dim_out: int = 2
+    dynamic_env: bool = False
+    fc_input: int = 3200
+    input_channel: int = 7
     num_hypos: int = 20
     obsv_len: int = 5
-    input_channel: int = 7
-    fc_input: int = 3200
+    pred_len: int = 1
+    batch_size: int = 20
+    checkpoint_dir: str = "Model/"
+    early_stopping: int = 0
+    epoch: int = 20
+    learning_rate: float = 0.001
+    weight_regularization: float = 0.0001
+    cell_width: float = 1.0
     x_max_px: int = 330
     y_max_px: int = 293
+    data_name: str = "WSD_1t20_train"
+    data_path: str = "data/WSD_1t20_train"
+    label_csv: str = "all_data.csv"
+    label_path: str = "data/WSD_1t20_train/all_data.csv"
     model_path: str = "Model/wsd_1t20_full_torch.pt"
+
+    # Field partition of the reference's 4-document training YAMLs, in the
+    # generator's document order (utils/utils_yaml.py:13-42).
+    _PARTITION = (
+        ("pred_len", "obsv_len", "dim_out", "fc_input", "num_hypos",
+         "dynamic_env", "device", "input_channel"),
+        ("epoch", "batch_size", "early_stopping", "learning_rate",
+         "weight_regularization", "checkpoint_dir"),
+        ("x_max_px", "y_max_px", "cell_width"),
+        ("model_path", "data_name", "label_csv", "data_path", "label_path"),
+    )
+
+    def save_yaml_partition(self, yaml_path: str) -> None:
+        """Write the multi-document training YAML in the reference
+        generator's general / training / converting / path split
+        (`utils/utils_yaml.py:44-56`), so the file round-trips through
+        `from_yaml(with_partition=True)`."""
+        d = self.to_dict()
+        save_yaml_all([{k: d[k] for k in part} for part in self._PARTITION],
+                      yaml_path)
 
 
 @dataclass(frozen=True)

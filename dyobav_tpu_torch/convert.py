@@ -10,6 +10,8 @@ JAX package.
     config_from_dict(DwaConfiguration, d)      -> configs.DwaConfiguration
     scenario_from_numpy(sc_jax_as_numpy, device) -> sim.batch.Scenario
     wta_state_dict_from_flax(variables_as_numpy) -> models.wta_net state_dict
+    state_dict_from_flax(variables_as_numpy, net) -> the SWTA / MDN nets'
+        state_dict, or their parameters (a gradient tree) alone
 """
 from __future__ import annotations
 
@@ -78,10 +80,21 @@ def scenario_from_numpy(sc: Any, device=None):
         device or "cpu")
 
 
-def _wta_module_pairs(params: Mapping, lite: bool, blocks) -> list:
+_HEADS = {
+    "wta": (("Dense_0", "fc1"), ("Dense_1", "swarm.layer_hypos")),
+    "mdn": (("Dense_0", "fc1"),
+            ("ClassicMixtureDensityModule_0/Dense_0", "mdn.layer")),
+    "mdnfit": (("Dense_0", "fc1"), ("Dense_1", "layer_hypos"),
+               ("SamplingMixtureDensityModule_0/Dense_0", "smdn.layer")),
+}
+
+
+def _module_pairs(params: Mapping, net: str, lite: bool, blocks) -> list:
     """Ordered (flax_path, torch_prefix, kind) for every weighted module of
-    `ConvMultiHypoNet`, kind 'conv' | 'bn' | 'dense'.  A block has a
-    shortcut where its Flax parameters hold one."""
+    the port's net `net` ("wta": `models.wta_net.ConvMultiHypoNet`, "mdn":
+    `models.mdn.ConvMixtureDensityNet`, "mdnfit":
+    `models.mdn.ConvMultiHypoMixtureDensityFit`), kind 'conv' | 'bn' |
+    'dense'.  A block has a shortcut where its Flax parameters hold one."""
     bb = "ResNet34Lite_0" if lite else "ResNet34_0"
     pairs = []
     for i in range(1 if lite else 3):
@@ -102,8 +115,7 @@ def _wta_module_pairs(params: Mapping, lite: bool, blocks) -> list:
                 pairs += [(f"{fx}/Conv_0", f"{tp}.downsample.0", "conv"),
                           (f"{fx}/BatchNorm_0", f"{tp}.downsample.1", "bn")]
             b += 1
-    return pairs + [("Dense_0", "fc1", "dense"),
-                    ("Dense_1", "swarm.layer_hypos", "dense")]
+    return pairs + [(fx, tp, "dense") for fx, tp in _HEADS[net]]
 
 
 def _fc1_perm(fc_input: int, n_channels: int) -> np.ndarray:
@@ -117,19 +129,24 @@ def _fc1_perm(fc_input: int, n_channels: int) -> np.ndarray:
         1, 2, 0).reshape(-1)
 
 
-def wta_state_dict_from_flax(variables: Mapping, lite: bool = True,
-                             blocks=(3, 4, 6, 3)) -> dict:
-    """The JAX package's `ConvMultiHypoNet` variables `{'params',
-    'batch_stats'}` (numpy leaves, nested dicts) -> the port's
-    `models.wta_net.ConvMultiHypoNet` `state_dict` (CPU tensors).
+def state_dict_from_flax(variables: Mapping, net: str = "wta",
+                         lite: bool = True, blocks=(3, 4, 6, 3)) -> dict:
+    """The JAX package's variables `{'params', 'batch_stats'}` (numpy
+    leaves, nested dicts) of the net `net` ("wta": `ConvMultiHypoNet`,
+    "mdn": `ConvMixtureDensityNet`, "mdnfit":
+    `ConvMultiHypoMixtureDensityFit`) -> the port's `state_dict` of the same
+    net (CPU tensors).
 
     Conv kernels HWIO -> OIHW, dense kernels transposed, BatchNorm
     scale / bias / mean / var to weight / bias / running_mean /
     running_var, and fc1's input axis permuted from the NHWC flattening to
-    the NCHW one.  `blocks` is the net's blocks per stage.
+    the NCHW one.  `blocks` is the net's blocks per stage.  Without
+    'batch_stats' the result holds the parameters only, so the same
+    mapping carries a gradient tree (`{'params': grads}`) onto
+    `named_parameters()`.
     """
     params = variables["params"]
-    stats = variables.get("batch_stats", {})
+    stats = variables.get("batch_stats")
 
     def leaves(tree, path):
         for part in path.split("/"):
@@ -138,7 +155,7 @@ def wta_state_dict_from_flax(variables: Mapping, lite: bool = True,
 
     sd = {}
     last_channels = None
-    for fx, tp, kind in _wta_module_pairs(params, lite, blocks):
+    for fx, tp, kind in _module_pairs(params, net, lite, blocks):
         p = leaves(params, fx)
         if kind == "conv":
             sd[f"{tp}.weight"] = p["kernel"].transpose(3, 2, 0, 1)  # HWIO
@@ -146,14 +163,22 @@ def wta_state_dict_from_flax(variables: Mapping, lite: bool = True,
                 sd[f"{tp}.bias"] = p["bias"]
             last_channels = p["kernel"].shape[3]
         elif kind == "bn":
-            s = leaves(stats, fx)
             sd[f"{tp}.weight"], sd[f"{tp}.bias"] = p["scale"], p["bias"]
-            sd[f"{tp}.running_mean"] = s["mean"]
-            sd[f"{tp}.running_var"] = s["var"]
-            sd[f"{tp}.num_batches_tracked"] = np.asarray(0, np.int64)
+            if stats is not None:
+                s = leaves(stats, fx)
+                sd[f"{tp}.running_mean"] = s["mean"]
+                sd[f"{tp}.running_var"] = s["var"]
+                sd[f"{tp}.num_batches_tracked"] = np.asarray(0, np.int64)
         else:
             w = p["kernel"].T                            # (out, in)
             if tp == "fc1":
                 w = w[:, np.argsort(_fc1_perm(w.shape[1], last_channels))]
             sd[f"{tp}.weight"], sd[f"{tp}.bias"] = w, p["bias"]
     return {k: torch.tensor(v) for k, v in sd.items()}
+
+
+def wta_state_dict_from_flax(variables: Mapping, lite: bool = True,
+                             blocks=(3, 4, 6, 3)) -> dict:
+    """`state_dict_from_flax` of the JAX package's `ConvMultiHypoNet` ->
+    the port's `models.wta_net.ConvMultiHypoNet` `state_dict`."""
+    return state_dict_from_flax(variables, "wta", lite, blocks)

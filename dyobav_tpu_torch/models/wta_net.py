@@ -19,7 +19,13 @@ channel, the pred-offset channel) as (B, 7, H, W); output (B, num_hypos,
 dim_out).  The convolutions, BatchNorm (eval mode, eps 1e-5), pooling and
 dense layers are the JAX package's XLA operations and stay `torch.nn`
 layers (cuDNN / cuBLAS on the card).  Activations after a BatchNorm and the
-residual add run in place: the port only runs the net for inference.
+residual add run in place; autograd takes them in train mode too.
+
+In train mode BatchNorm follows Flax's `BatchNorm(momentum=0.9)`: it
+normalizes with the batch's own statistics and moves the running variance
+toward the batch's *biased* variance (torch's own rule takes the unbiased
+one, n / (n - 1) times larger: 1.067x over the 16 values a channel has at
+a 2 x 2 last stage and a batch of 4).  Eval mode is torch's BatchNorm.
 """
 from __future__ import annotations
 
@@ -54,6 +60,25 @@ def full_f32():
             matmul.allow_tf32 = saved
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (eps 1e-5, momentum 0.1) whose train-mode update of
+    the running statistics is Flax's: running = 0.9 running + 0.1 batch,
+    with the batch's biased variance.  Eval mode is the parent's forward,
+    and the state_dict keys are the parent's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                           self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
 class ConvBNLeaky(nn.Sequential):
     """conv (bias only without BN) -> BatchNorm -> LeakyReLU(0.1); keys
     `0` (conv) and `1` (BN)."""
@@ -64,7 +89,7 @@ class ConvBNLeaky(nn.Sequential):
         layers = [nn.Conv2d(in_ch, out_ch, kernel, stride, padding,
                             bias=not use_bn)]
         if use_bn:
-            layers.append(nn.BatchNorm2d(out_ch, eps=1e-5))
+            layers.append(BatchNorm2d(out_ch))
         super().__init__(*layers)
         self.activate = activate
 
@@ -85,7 +110,7 @@ class BasicBlock(nn.Module):
         # The JAX block always adds BatchNorm to its shortcut.
         self.downsample = (nn.Sequential(
             nn.Conv2d(in_ch, out_ch, 1, stride, bias=False),
-            nn.BatchNorm2d(out_ch, eps=1e-5))
+            BatchNorm2d(out_ch))
             if stride != 1 or in_ch != out_ch else None)
 
     def forward(self, x):
@@ -196,6 +221,17 @@ class ConvMultiHypoNet(nn.Module):
         feat = F.leaky_relu(self.fc1(feat), LEAKY_POST)
         hypos = self.swarm(feat)
         return hypos.reshape(hypos.shape[0], self.num_hypos, self.dim_out)
+
+
+def backbone_fc_input(height: int, width: int, channels: int = 128) -> int:
+    """`fc_input` of a net on (height, width) inputs: the flattened size of
+    the backbone's feature map (stem /2, max pool /2, three stride-2
+    stages, 2 x 2 average pool), 128 x 5 x 5 = 3200 at 293 x 330."""
+    def down(n):
+        for _ in range(5):
+            n = (n - 1) // 2 + 1
+        return n // 2
+    return channels * down(height) * down(width)
 
 
 def load_checkpoint(path: str, device=None, config=None) -> ConvMultiHypoNet:

@@ -34,7 +34,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) >= 25
     # The scan covers the per-episode harness, its entry, the baselines,
-    # the deployment node with its script and the fleet.
+    # the deployment node with its script, the fleet and the training
+    # stack.
     rel = {os.path.relpath(p, REPO) for p in files}
     assert {f"dyobav_tpu_torch/{m}.py" for m in (
         "trackers/mpc_tracker", "interfaces/mpc_interface", "motion/agents",
@@ -42,7 +43,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "sim/entry", "sim/__main__", "ops/panoc", "ops/dwa",
         "trackers/dwa_tracker", "interfaces/dwa_interface", "motion/kalman",
         "predictors/kfmp", "maps/preset", "sim/deploy", "sim/ros_adapter",
-        "sim/plotter", "sim/fleet")} <= rel
+        "sim/plotter", "sim/fleet", "models/losses", "models/mdn",
+        "models/data", "models/manager", "models/train",
+        "utils/density")} <= rel
     assert "scripts/deploy_latency_torch.py" in rel
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
