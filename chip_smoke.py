@@ -115,6 +115,20 @@ just after:
    synthetic images with the standard-normal labels of
    tests/test_models.py's MDN tests: the reference's mixture NLL is +inf
    at a fresh init on labels in pixels, in both packages.
+11. multi-device sweeps, in the training process after its phases
+   (`sweep[devices]`): `python -m dyobav_tpu_torch.sim.sweep` through
+   `main(argv)` with SWEEP_ARGS and `--devices 1`, then `--devices 0`
+   (JAX's "every device", one unsharded batch in the port): equal
+   statistics, `"devices"` 1 both times; `shard_map_batch` of `build_batch_sim`'s run over [cuda:0,
+   cuda:0] against the unsharded run at SHARD_BATCH scenarios for
+   SHARD_STEPS steps (robots within 1e-4 m at every step, flags and counts
+   equal); and a one-process `--distributed` run (NCCL, world size 1, a
+   port the system chose): `--devices 1`'s counts, its means within 1e-5.
+   Each fails without a kernel-1 launch.  The harness's process also runs
+   `run("dwa", "mmp")` on scenario 0 for HARNESS_DWA_MMP_STEPS steps with
+   the strictly loaded net (`harness[dwa+mmp]`, after `harness[dwa+kfmp]`),
+   with the harness's checks and no kernel-1 launch: with it all six
+   (tracker, predictor) pairs run on the card.
 
 Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
 cache) and one call at a time after a write that evicts the L2 cache
@@ -212,6 +226,9 @@ TRAIN_HOST_STEPS = 10     # steps an epoch of train[wta]'s host-paced run
 TRAIN_REF_BATCH = 4       # images of train_card_vs_cpu
 TRAIN_WARMUP, TRAIN_TIMED = 5, 20   # steps before / in a timed window
 TRAIN_GRAD_RL2 = 2e-2     # train_card_vs_cpu: float32 gradient bound
+SWEEP_ARGS = ["--n", "8", "--steps", "2"]   # sweep[devices]'s sweep runs
+SHARD_BATCH, SHARD_STEPS = 8, 3   # shard_map_batch over [cuda:0, cuda:0]
+HARNESS_DWA_MMP_STEPS = 10  # control steps of harness[dwa+mmp]
 CHILD_TIMEOUT_S = 600     # wait for the other processes after paths 1-4
 
 
@@ -1259,6 +1276,7 @@ def harness_paths(device) -> dict:
                        whole=True)
     harness_dwa_reference_check(device)
     drive_harness_path("dwa", "kfmp", None, HARNESS_DWA_STEPS, device)
+    drive_harness_path("dwa", "mmp", None, HARNESS_DWA_MMP_STEPS, device)
     launches["harness[mpc+kfmp]"] = drive_harness_path(
         "mpc", "kfmp", SolverConfiguration(), HARNESS_KFMP_STEPS, device)
     launches.update(deploy_paths(device))
@@ -1781,8 +1799,170 @@ def train_paths(device) -> dict:
     return {}
 
 
+def sweep_quality(out: dict) -> dict:
+    """The sweep JSON's keys that must not depend on how the batch is
+    split: all but the device and host counts and the timings."""
+    return {k: v for k, v in out.items() if k not in (
+        "devices", "hosts", "wall_s_first", "wall_s_steady",
+        "control_steps_per_s")}
+
+
+def run_sweep(argv) -> tuple[dict, float, int]:
+    """`python -m dyobav_tpu_torch.sim.sweep` through `main(argv)`: (its
+    JSON, wall s, kernel-1 launches)."""
+    import contextlib
+    import io
+
+    from dyobav_tpu_torch.ops import spd
+    from dyobav_tpu_torch.sim import sweep
+
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = sweep.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"sweep {argv} exited {rc}")
+    return (json.loads(buf.getvalue().strip().splitlines()[-1]), wall,
+            spd.spd_solve.launches)
+
+
+def shard_map_check(device) -> tuple[int, int]:
+    """`shard_map_batch` of `build_batch_sim`'s run over [cuda:0, cuda:0]
+    against the unsharded run at SHARD_BATCH scenarios for SHARD_STEPS
+    steps (the shipped budget, the global seeds): robot positions within
+    1e-4 m at every step, flags and counts equal.  Returns kernel 1's
+    launches on the unsharded and the sharded runs."""
+    import torch
+
+    from dyobav_tpu_torch.configs import SolverConfiguration
+    from dyobav_tpu_torch.ops import spd
+    from dyobav_tpu_torch.parallel.mesh import (make_mesh, shard_batch,
+                                                shard_map_batch)
+    from dyobav_tpu_torch.sim.batch import BatchResult, build_batch_sim
+    from dyobav_tpu_torch.sim.harness import MainBase
+    from dyobav_tpu_torch.sim.scenarios import random_scenarios
+
+    B, T = SHARD_BATCH, SHARD_STEPS
+    base = MainBase(max_run_time_step=T, evaluation=True, seed=0)
+    batch = random_scenarios(base, B, seed=0)
+    run = build_batch_sim(base.config_mpc, base.config_robot,
+                          SolverConfiguration(), n_steps=T, record_traj=True,
+                          device=device)
+
+    def lanes_first(sc, seeds):
+        res, (traj, _) = run(sc, seeds)
+        return res, traj.transpose(0, 1)
+
+    out, launches, walls = [], [], []
+    mesh = make_mesh(devices=[device, device])
+    for sharded in (False, True):
+        reset_counts()
+        t0 = time.perf_counter()
+        if sharded:
+            out.append(shard_map_batch(lanes_first, mesh)(
+                shard_batch(mesh, batch), shard_batch(mesh, np.arange(B))))
+        else:
+            out.append(lanes_first(batch, np.arange(B)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches.append(spd.spd_solve.launches)
+    (one, traj1), (two, traj2) = out
+    dev = float((traj2 - traj1)[..., :2].abs().max())
+    print(json.dumps({
+        "main_path": "shard_map_batch[cuda:0 x 2]", "scenarios": B,
+        "steps": T, "wall_s_unsharded": walls[0], "wall_s_sharded": walls[1],
+        "spd_launches_unsharded": launches[0],
+        "spd_launches_sharded": launches[1],
+        "robot_dev_max_m": dev}), flush=True)
+    if traj2.shape != (B, T, 3) or not torch.isfinite(traj2).all():
+        raise AssertionError("shard_map_batch: a bad robot trajectory")
+    if dev > 1e-4:
+        raise AssertionError(f"shard_map_batch: robots {dev:.3e} m from "
+                             "the unsharded run")
+    for f in BatchResult._fields:
+        a, b = getattr(one, f), getattr(two, f)
+        if not a.is_floating_point() and not torch.equal(a, b):
+            raise AssertionError(f"shard_map_batch: {f} differs from the "
+                                 "unsharded run")
+    if min(launches) <= 0:
+        raise AssertionError("shard_map_batch never launched spd_cholesky")
+    return launches[0], launches[1]
+
+
+def sweep_paths(device) -> dict:
+    """`sweep[devices]`: `sim.sweep` with `--devices 1` and `--devices 0`
+    (one unsharded batch both): the same statistics; `shard_map_check`;
+    a one-process `--distributed` run (NCCL, world size 1, a port the
+    system chose) whose statistics are `--devices 1`'s (counts equal, the
+    means, which it sums in float64, within 1e-5).  Returns kernel 1's
+    launches by run."""
+    import socket
+
+    import torch
+
+    one, wall1, n1 = run_sweep(SWEEP_ARGS + ["--devices", "1"])
+    every, wall0, n0 = run_sweep(SWEEP_ARGS + ["--devices", "0"])
+    n_unsharded, n_sharded = shard_map_check(device)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    os.environ.update(env)
+    try:
+        dist, wall_d, n_d = run_sweep(SWEEP_ARGS + ["--distributed"])
+    finally:
+        for key in env:
+            os.environ.pop(key)
+    print(json.dumps({
+        "main_path": "sweep[devices]", "args": SWEEP_ARGS,
+        "devices_1": one, "devices_0": every, "distributed": dist,
+        "wall_s": {"devices_1": wall1, "devices_0": wall0,
+                   "distributed": wall_d},
+        "spd_launches": {"devices_1": n1, "devices_0": n0,
+                         "distributed": n_d},
+        "cuda_devices": torch.cuda.device_count()}), flush=True)
+    if one["devices"] != 1 or every["devices"] != 1:
+        raise AssertionError(f"sweep[devices]: devices {one['devices']} "
+                             f"and {every['devices']}")
+    if sweep_quality(every) != sweep_quality(one):
+        raise AssertionError("sweep[devices]: --devices 0 and --devices 1 "
+                             "disagree")
+    if dist["hosts"] != 1 or dist["devices"] != 1:
+        raise AssertionError(f"sweep[distributed]: {dist}")
+    for key in ("n_scenarios", "robots", "success_rate", "collision_rate",
+                "solver_fail_steps_mean", "steps_used_mean",
+                "deviation_max"):
+        if dist[key] != one[key]:
+            raise AssertionError(f"sweep[distributed]: {key} {dist[key]} "
+                                 f"against {one[key]}")
+    for key in ("min_clearance_mean", "min_static_clearance_mean",
+                "deviation_mean", "smoothness_mean"):
+        gap = np.abs(np.subtract(dist[key], one[key])).max()
+        if gap > 1e-5 * max(1.0, np.abs(one[key]).max()):
+            raise AssertionError(f"sweep[distributed]: {key} {dist[key]} "
+                                 f"against {one[key]}")
+    if not all(np.isfinite(v) for v in (one["deviation_mean"],
+                                        one["min_static_clearance_mean"])):
+        raise AssertionError(f"sweep[devices]: non-finite statistics {one}")
+    if min(n1, n0, n_d) <= 0:
+        raise AssertionError("sweep[devices] never launched spd_cholesky")
+    return {"sweep[devices=1]": n1, "sweep[devices=0]": n0,
+            "shard_map_batch[unsharded]": n_unsharded,
+            "shard_map_batch[cuda:0 x 2]": n_sharded,
+            "sweep[distributed]": n_d}
+
+
+def train_sweep_paths(device) -> dict:
+    """Path 10, then path 11 (`sweep_paths`) in the same process."""
+    train_paths(device)
+    return sweep_paths(device)
+
+
 CHILD_PHASES = {"harness": harness_paths, "solvers": solver_paths,
-                "train": train_paths}
+                "train": train_sweep_paths}
 
 
 def child_main(results, name: str, device: str) -> None:
@@ -1920,13 +2100,16 @@ def main() -> int:
     # tick's one robot (5 candidates, 4 rungs) and the deployment's cold
     # start (one lane); the fleets' stages at their scenarios x robots
     # lanes, all among the others' (the dict keeps each shape once, in
-    # order); the second kernel at the solve's 8192 systems, at its
-    # docstring's 512 and at a ragged 200.
+    # order); sweep[devices]'s 8 lanes and its two shards' 4 each; the
+    # second kernel at the solve's 8192 systems, at its docstring's 512
+    # and at a ragged 200.
     K = max(BATCH // 16, min(BATCH, 16), 1)
     shapes = ([(BATCH, 4), (K, 4)] + sim_kernel_shapes(SIM_BATCH)
               + sim_kernel_shapes(WTA_BATCH) + [(5, 4), (1, 4)]
               + sim_kernel_shapes(FLEET_BATCH * FLEET_ROBOTS)
-              + sim_kernel_shapes(FLEET_WTA_BATCH * FLEET_ROBOTS))
+              + sim_kernel_shapes(FLEET_WTA_BATCH * FLEET_ROBOTS)
+              + sim_kernel_shapes(SHARD_BATCH)
+              + sim_kernel_shapes(SHARD_BATCH // 2))
     entry1 = check_kernel(
         "spd_cholesky", "dyobav_tpu_torch/csrc/spd_cholesky.cu",
         "dyobav_tpu/ops/pallas_spd.py:46", spd.spd_solve,

@@ -5,11 +5,12 @@ the JAX package's module paths and names so each counterpart is easy to
 find, imports `torch` and numpy (never JAX, never `dyobav_tpu`), and runs
 its entry points on a CUDA device unless the caller passes `device="cpu"`.
 
-Ported so far (the batched NMPC solve in every solver mode, the
-closed-loop batched simulation with the constant-velocity or the SWTA
-neural predictor, the per-episode harness with every tracker and
-predictor, the PANOC method, the deployment node, the decentralized
-multi-robot fleet, and the SWTA / MDN training stack):
+Every module of the JAX package has its counterpart (the batched NMPC
+solve in every solver mode, the closed-loop batched simulation with the
+constant-velocity or the SWTA neural predictor, sharded over devices and
+processes, the per-episode harness with every tracker and predictor, the
+PANOC method, the deployment node, the decentralized multi-robot fleet,
+the SWTA / MDN training stack, and the planners):
     configs           L0  MpcConfiguration, CircularRobotSpecification,
                           SolverConfiguration, WarehouseSimConfiguration,
                           WtaNetConfiguration, DwaConfiguration
@@ -17,11 +18,13 @@ multi-robot fleet, and the SWTA / MDN training stack):
                           the reciprocating (back-and-forth) agent
     motion.kalman     L1  Kalman filter and its state spaces
     motion.agents     L1  Human, Robot
-    utils.geometry    L1  host-side polygon geometry (numpy)
+    utils.geometry    L1  host-side polygon geometry (numpy); point,
+                          segment, ellipse and half-space primitives (torch)
     utils.density     L1  Parzen and Gaussian-mixture densities
     maps.*            L2  PGM and PNG readers, blobs, occupancy /
                           geometric maps, transforms, navigation graph (no
-                          networkx, no imaging library), preset maps
+                          networkx, no imaging library), preset maps; the
+                          two plot methods import nothing
     models.wta_net    L2  ConvMultiHypoNet (SWTA CNN), load_checkpoint
     models.heatmap    L2  heat-map input stacks
     models.mdn        L2  MDN heads and nets
@@ -55,7 +58,12 @@ multi-robot fleet, and the SWTA / MDN training stack):
     sim.fleet         L5  build_fleet_sim: R robots a scenario, each
                           avoiding the others' predicted trajectories
     sim.plotter       L5  the demo's live plot (matplotlib, imported lazily)
+    parallel.mesh     L5  device lists, shard_batch, shard_map_batch,
+                          init_distributed (torch.distributed)
+    planners.*        L5  paths, Dijkstra / Yen k-shortest paths,
+                          visibility graph, schedule-driven global planner
     sim.sweep         L5  python -m dyobav_tpu_torch.sim.sweep [--robots R]
+                          [--devices N | --distributed]
     convert               parameters, configurations, scenarios and the
                           SWTA / MDN nets' weights (or gradients) from
                           the JAX package

@@ -1,5 +1,6 @@
 """Geometric (polygon) map with inflation and coordinate conversion (the
-port's copy of `dyobav_tpu.maps.geometric`, without its plotting method).
+port's copy of `dyobav_tpu.maps.geometric`; `plot` draws on a caller's
+matplotlib axes and imports nothing).
 
 Mirrors `basic_map/map_geometric.GeometricMap` (map_geometric.py:35-122);
 polygon offsetting is the dependency-free `utils.geometry.offset_polygon`
@@ -93,3 +94,23 @@ class GeometricMap:
                 inside &= (sign * cross) >= 0
             occupied |= inside
         return np.where(occupied, 0, 255).astype(np.uint8)
+
+    def plot(self, ax, inflated: bool = True,
+             original_plot_args: dict | None = None,
+             inflated_plot_args: dict | None = None):
+        """Draw the boundary (a line) and the obstacles (filled) on a
+        caller's matplotlib `ax`, the inflated map first."""
+        original_plot_args = original_plot_args or {"c": "k"}
+        inflated_plot_args = inflated_plot_args or {"c": "r", "alpha": 0.3}
+        if inflated and self.processed_boundary_coords is not None:
+            pb = np.array(self.processed_boundary_coords
+                          + [self.processed_boundary_coords[0]])
+            ax.plot(pb[:, 0], pb[:, 1], **inflated_plot_args)
+            for coords in self.processed_obstacle_list:
+                po = np.array(coords + [coords[0]])
+                ax.fill(po[:, 0], po[:, 1], **inflated_plot_args)
+        pb = np.array(self.boundary_coords + [self.boundary_coords[0]])
+        ax.plot(pb[:, 0], pb[:, 1], **original_plot_args)
+        for coords in self.obstacle_list:
+            po = np.array(coords + [coords[0]])
+            ax.fill(po[:, 0], po[:, 1], **original_plot_args)

@@ -2,13 +2,17 @@
 
 The port's counterpart of `dyobav_tpu.maps.graph.NetGraph`, which
 subclasses `networkx.Graph`.  This one is a plain class with the part of
-that surface the scenario constructors use: `nodes`, `adj`, `edges`,
-`get_node_coord`, `return_given_nodelist`, `return_random_nodelist`,
-`load_from_json`.  Node order and each node's neighbour order are
+that surface the scenario constructors and the planners use: `nodes`, `adj`,
+`edges`, `add_edge`, `remove_edge`, `has_edge`, `copy`, `get_node_coord`,
+`return_given_nodelist`, `return_random_nodelist`, `load_from_json`,
+`plot_netgraph`.  Node order and each node's neighbour order are
 networkx's (insertion order of `add_node`, then of `add_edges_from`, both
-ends of every edge), because `sim.scenarios.random_scenarios` draws from
-`list(graph.nodes)` and `graph.adj[i]` with a seeded `random.Random`: any
-other order gives other scenarios from the same seed.
+ends of every edge; an edge removed and added again goes last; `copy`
+rebuilds the adjacency as `networkx.Graph.copy` does), because
+`sim.scenarios.random_scenarios` draws from `list(graph.nodes)` and
+`graph.adj[i]` with a seeded `random.Random`, and
+`planners.dijkstra` breaks ties between equal-length paths by that order:
+any other order gives other scenarios from the same seed, and other paths.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import json
 import math
 import random
 from typing import Any, Dict, List
+
+import numpy as np
 
 
 class NetGraph:
@@ -47,6 +53,26 @@ class NetGraph:
             data.update(attr)
             self.adj[u][v] = data
             self.adj[v][u] = data
+
+    def add_edge(self, u, v, **attr) -> None:
+        self.add_edges_from([(u, v, attr)])
+
+    def remove_edge(self, u, v) -> None:
+        del self.adj[u][v]
+        if u != v:
+            del self.adj[v][u]
+
+    def has_edge(self, u, v) -> bool:
+        return u in self.adj and v in self.adj[u]
+
+    def copy(self) -> "NetGraph":
+        """An independent copy, built in `networkx.Graph.copy`'s order."""
+        g = type(self)()
+        for n, d in self.nodes.items():
+            g.add_node(n, **d)
+        g.add_edges_from((u, v, dict(d)) for u, nbrs in self.adj.items()
+                         for v, d in nbrs.items())
+        return g
 
     @property
     def edges(self) -> List[tuple]:
@@ -99,3 +125,32 @@ class NetGraph:
             node_ids.append(next_id)
             nodelist.append(self.get_node_coord(next_id))
         return nodelist
+
+    def plot_netgraph(self, ax, node_style="x", node_text: bool = True,
+                      edge_color="r") -> None:
+        """Draw the nodes (a marker and, with `node_text`, the id each) and
+        the edges (one line collection, as `networkx.draw_networkx_edges`
+        draws an undirected graph) on a caller's matplotlib `ax`."""
+        from matplotlib.collections import LineCollection
+
+        for n in self.nodes:
+            x, y = self.get_node_coord(n)
+            ax.plot(x, y, node_style)
+            if node_text:
+                ax.text(x, y, str(n))
+        segments = [(self.get_node_coord(u), self.get_node_coord(v))
+                    for u, v in self.edges]
+        if not segments:
+            return
+        lines = LineCollection(segments, colors=edge_color, linewidths=1.0,
+                               linestyle="solid", antialiaseds=(1,))
+        lines.set_zorder(1)
+        ax.add_collection(lines)
+        (minx, miny), (maxx, maxy) = (np.min(segments, axis=(0, 1)),
+                                      np.max(segments, axis=(0, 1)))
+        padx, pady = 0.05 * (maxx - minx), 0.05 * (maxy - miny)
+        ax.update_datalim([(minx - padx, miny - pady),
+                           (maxx + padx, maxy + pady)])
+        ax.autoscale_view()
+        ax.tick_params(axis="both", which="both", bottom=False, left=False,
+                       labelbottom=False, labelleft=False)

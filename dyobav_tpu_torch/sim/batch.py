@@ -614,7 +614,7 @@ def build_batch_sim(cfg: MpcConfiguration, robot_cfg: CircularRobotSpecification
             stag = torch.stack([
                 draw_stagger((n_steps, H), human_stagger,
                              torch.Generator().manual_seed(int(s)), dtype)
-                for s in np.asarray(seeds).reshape(-1)])
+                for s in torch.as_tensor(seeds).reshape(-1).tolist()])
         stag = stag.to(device)
         st = init_state(sc)
 

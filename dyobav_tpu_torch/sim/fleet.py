@@ -324,7 +324,7 @@ def build_fleet_sim(cfg: MpcConfiguration,
         stag = torch.stack([
             draw_stagger((n_steps, H), human_stagger,
                          torch.Generator().manual_seed(int(s)), dtype)
-            for s in np.asarray(seeds).reshape(-1)]).to(device)
+            for s in torch.as_tensor(seeds).reshape(-1).tolist()]).to(device)
         st = init_state(sc)
 
         if cold_solve is not None:

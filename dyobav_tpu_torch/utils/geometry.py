@@ -1,15 +1,83 @@
-"""Host-side 2-D geometry for map preprocessing (numpy), the port's copy of
-the numpy half of `dyobav_tpu.utils.geometry`.
+"""2-D geometry, the port of `dyobav_tpu.utils.geometry`.
 
-These run once per map or scenario, outside the solver; their outputs are
-the fixed-size padded tensors the batched simulation reads.  The JAX
-package's in-graph primitives of the same file (ellipse and polygon
-indicators) live in `ops/costs.py` here.  `lineseg_dists`, which the JAX
-file evaluates through `jnp`, is plain numpy in this copy.
+The host-side helpers for map preprocessing (numpy) run once per map or
+scenario, outside the solver; their outputs are the fixed-size padded
+tensors the batched simulation reads.  `lineseg_dists`, which the JAX file
+evaluates through `jnp`, is plain numpy here.  The six point primitives at
+the top (`dist_to_points_sq` ... `angle_between_vectors`) are torch
+functions on their inputs' device; the solver's own indicators are batched
+in `ops/costs.py`.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def dist_to_points_sq(point: torch.Tensor, points: torch.Tensor
+                      ) -> torch.Tensor:
+    """Squared distances from one point (d,) to m points (m, d) -> (m,).
+
+    Ref: `mpc_helper.dist_to_points_square` (mpc_helper.py:5-15).
+    """
+    diff = points - point[None, :]
+    return torch.sum(diff * diff, dim=-1)
+
+
+def dist_to_linesegs(point: torch.Tensor, seg_a: torch.Tensor,
+                     seg_b: torch.Tensor) -> torch.Tensor:
+    """Euclidean distance from one point (2,) to m segments (m,2),(m,2) ->
+    (m,), with `mpc_helper.dist_to_lineseg`'s 1e-16 degenerate-segment
+    guard (mpc_helper.py:17-36)."""
+    d = seg_b - seg_a                                     # (m, 2)
+    t_hat = torch.sum((point[None, :] - seg_a) * d, dim=-1) / (
+        torch.sum(d * d, dim=-1) + 1e-16)
+    t = torch.clamp(t_hat, 0.0, 1.0)
+    closest = seg_a + t[:, None] * d
+    return torch.linalg.norm(closest - point[None, :], dim=-1)
+
+
+def inside_ellipses(point_xy: torch.Tensor, cx: torch.Tensor,
+                    cy: torch.Tensor, rx: torch.Tensor, ry: torch.Tensor,
+                    ang: torch.Tensor) -> torch.Tensor:
+    """Signed inside-indicator for m rotated ellipses -> (m,): >0 inside,
+    with the reference's 1e-6 radius regularizer
+    (`mpc_helper.inside_ellipses`, mpc_helper.py:38-52)."""
+    dx = point_xy[0] - cx
+    dy = point_xy[1] - cy
+    c, s = torch.cos(ang), torch.sin(ang)
+    u = (dx * c + dy * s) / (rx + 1e-6)
+    v = (dx * s - dy * c) / (ry + 1e-6)
+    return 1.0 - u * u - v * v
+
+
+def inside_cvx_polygon(point_xy: torch.Tensor, b: torch.Tensor,
+                       a0: torch.Tensor, a1: torch.Tensor) -> torch.Tensor:
+    """Product-of-hinges inside-indicator of one convex polygon given as
+    half-spaces `b - a0 x - a1 y > 0`: positive iff strictly inside
+    (`mpc_helper.inside_cvx_polygon`, mpc_helper.py:54-75)."""
+    residual = b - a0 * point_xy[0] - a1 * point_xy[1]
+    return torch.prod(torch.clamp(residual, min=0.0), dim=-1)
+
+
+def outside_cvx_polygon(point_xy: torch.Tensor, b: torch.Tensor,
+                        a0: torch.Tensor, a1: torch.Tensor) -> torch.Tensor:
+    """Sum-of-squared-violations outside-indicator, 0 inside
+    (`mpc_helper.outside_cvx_polygon`, mpc_helper.py:77-98)."""
+    residual = b - a0 * point_xy[0] - a1 * point_xy[1]
+    return torch.sum(torch.clamp(residual, max=0.0) ** 2, dim=-1)
+
+
+def angle_between_vectors(l1: torch.Tensor, l2: torch.Tensor
+                          ) -> torch.Tensor:
+    """Signed angle (radians) between vectors given as 2x2 point pairs
+    (`mpc_helper.angle_between_vectors`, mpc_helper.py:100-110)."""
+    v1 = l1[1] - l1[0]
+    v2 = l2[1] - l2[0]
+    cos_angle = torch.dot(v1, v2) / (
+        torch.linalg.norm(v1) * torch.linalg.norm(v2) + 1e-6)
+    sign = torch.sign(v2[0] * v1[1] - v2[1] * v1[0])
+    return torch.arccos(torch.clamp(cos_angle, -1.0, 1.0)) * sign
 
 
 def lineseg_dists(points: np.ndarray, seg_a: np.ndarray,

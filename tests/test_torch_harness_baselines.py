@@ -1,23 +1,34 @@
 """The paper's baselines through the port's per-episode harness
 (`sim/harness.MainBase.run`), in lockstep with the JAX package's, on the
 CPU: the DWA tracker with the constant-velocity (cvmp) and the Kalman
-(kfmp) predictors over whole evaluation episodes.
+(kfmp) predictors over whole evaluation episodes, and with the SWTA
+predictor (mmp) over 10 steps.
 
 Both sides run the same float32 DWA search on the same host-built grid,
 and the pedestrians' stagger comes from `random.Random(seed)` on both
 sides, so the robots must agree within 1e-4 m at every step (measured: 0.0
-over these episodes) and the episodes must end alike.  The JAX side runs
-in a second thread while the port's runs.
+over these episodes) and the episodes must end alike.  With mmp both
+sides run the trained net from `Model/wsd_1t20_full_torch.pt`, loaded as
+tests/test_torch_harness_mmp.py loads it; the clustered predictions agree
+within 1e-4 m, and the DWA picks the same cell at every step.  The JAX
+side runs in a second thread while the port's runs.
 """
 import os
 from concurrent.futures import ThreadPoolExecutor
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dyobav_tpu.models import port as jport
+from dyobav_tpu.models import wta_net as jw
+from dyobav_tpu.predictors import mmp as jmmp
 from dyobav_tpu.sim import harness as jh
+from dyobav_tpu_torch.models.wta_net import load_checkpoint
 from dyobav_tpu_torch.ops import engine as tengine
+from dyobav_tpu_torch.predictors import mmp as tmmp
 from dyobav_tpu_torch.sim import harness as th
 from dyobav_tpu_torch.trackers import dwa_tracker
 
@@ -28,16 +39,43 @@ pytestmark = pytest.mark.skipif(
     not os.path.exists(os.path.join(REPO, "data", "warehouse_sim_original",
                                     "mymap.pgm")),
     reason="warehouse data not imported")
+PT = os.path.join(REPO, "Model", "wsd_1t20_full_torch.pt")
 
 
-def record_episode(base, tracker, predictor):
+class JaxNet:
+    """The JAX net behind the one method of `NetworkManager` that the JAX
+    `MmpInterface` calls, `inference` (tests/test_torch_harness_mmp.py)."""
+
+    def __init__(self, variables):
+        self.variables = variables
+        self.apply = jax.jit(
+            lambda v, im: jw.ConvMultiHypoNet().apply(v, im, train=False))
+
+    def inference(self, images):
+        return np.asarray(self.apply(self.variables,
+                                     jnp.asarray(images, jnp.float32)))
+
+
+def record_episode(base, tracker, predictor, make_predictor=None):
     """One evaluation episode through `MainBase.run`, recording per step the
     robot and pedestrian states, the tracker's action and cost, and each
-    prediction the predictor returned."""
+    prediction the predictor returned (with `make_predictor`, that
+    predictor in place of the harness's own, and the clustered predictions
+    of the SWTA path)."""
     rec, preds = [], []
     step, prepare = base.run_one_step, base._prepare_interfaces
+    wta = base.run_wta_prediction
+
+    def clustered(*args):
+        out = wta(*args)
+        preds.append(out[:2])
+        return out
 
     def prepared(robot, predictor_type, tracker_type):
+        if make_predictor is not None:
+            intf, _ = prepare(robot, None, tracker_type)
+            base.run_wta_prediction = clustered
+            return intf, make_predictor()
         intf, pred = prepare(robot, predictor_type, tracker_type)
         if pred is not None:
             predict = pred.get_motion_prediction
@@ -65,12 +103,14 @@ def record_episode(base, tracker, predictor):
     return rec, preds
 
 
-def lockstep(tracker, predictor, jax_kw=None, port_kw=None, **kw):
+def lockstep(tracker, predictor, jax_kw=None, port_kw=None, makers=(),
+             **kw):
     jbase = jh.MainBase(**kw, **(jax_kw or {}))
     tbase = th.MainBase(device="cpu", **kw, **(port_kw or {}))
+    make_j, make_t = makers or (None, None)
     with ThreadPoolExecutor(1) as pool:
-        fut = pool.submit(record_episode, jbase, tracker, predictor)
-        out_t = record_episode(tbase, tracker, predictor)
+        fut = pool.submit(record_episode, jbase, tracker, predictor, make_j)
+        out_t = record_episode(tbase, tracker, predictor, make_t)
         out_j = fut.result()
     return (jbase, *out_j), (tbase, *out_t)
 
@@ -106,6 +146,51 @@ def test_dwa_episode_matches_jax(scenario, predictor):
     for key in ("clearance_mean", "clearance_dyn_mean", "deviation_mean"):
         if key in s_j:
             assert s_t[key] == pytest.approx(s_j[key], abs=1e-4), key
+
+
+@pytest.mark.skipif(not os.path.exists(PT),
+                    reason="trained checkpoint absent")
+def test_dwa_mmp_lockstep_matches_jax():
+    """dwa + mmp, the one (tracker, predictor) pair of the reference's six
+    that no other test runs: scenario 0 for 10 steps, the same net on both
+    sides.  The pedestrians agree within 1e-9 m, the clustered predictions
+    (as many Gaussians a horizon step) within 1e-4 m, and the DWA picks
+    the same cell, so the robots agree within 1e-4 m."""
+    def jax_net():
+        variables = jax.tree_util.tree_map(jnp.asarray,
+                                           jport.load_torch_checkpoint(PT))
+        return jmmp.MmpInterface(network_manager=JaxNet(variables))
+
+    def port_net():
+        return tmmp.MmpInterface(net=load_checkpoint(PT, "cpu"),
+                                 device="cpu")
+
+    (jbase, rec_j, pred_j), (tbase, rec_t, pred_t) = lockstep(
+        "dwa", "mmp", makers=(jax_net, port_net), max_num_run=1,
+        max_run_time_step=10, evaluation=True, seed=1, scenario_index=0)
+    dev = [float(np.abs(t["robot"][:2] - j["robot"][:2]).max())
+           for j, t in zip(rec_j, rec_t)]
+    print(f"dwa+mmp scenario 0: {len(rec_t)} steps, robot deviation max "
+          f"{max(dev):.3e} m")
+    assert len(rec_t) == len(rec_j) == len(pred_t) == len(pred_j) == 10
+    for k, (j, t) in enumerate(zip(rec_j, rec_t)):
+        np.testing.assert_allclose(t["humans"], j["humans"], rtol=0,
+                                   atol=1e-9)
+        (mu_t, std_t), (mu_j, std_j) = pred_t[k], pred_j[k]
+        assert [len(m) for m in mu_t] == [len(m) for m in mu_j], k
+        assert sum(len(m) for m in mu_t[1:]) > 0
+        for a, b in zip(mu_t + std_t, mu_j + std_j):
+            np.testing.assert_allclose(np.array(a, float).reshape(-1, 2),
+                                       np.array(b, float).reshape(-1, 2),
+                                       rtol=0, atol=1e-4, err_msg=f"step {k}")
+        # The same cell of the DWA's grid, so the same action and robot.
+        np.testing.assert_allclose(t["action"], j["action"], rtol=0,
+                                   atol=1e-6, err_msg=f"step {k}")
+        assert dev[k] <= 1e-4, (k, dev[k])
+        assert t["cost"] == pytest.approx(j["cost"], rel=1e-4, abs=1e-5), k
+        assert t["out"][:2] == j["out"][:2], k
+    s_j, s_t = jbase.results_summary(), tbase.results_summary()
+    assert s_t["outcomes"] == s_j["outcomes"]
 
 
 def test_dwa_no_predictor_step_and_one_host_copy():

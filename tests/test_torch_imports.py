@@ -34,8 +34,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert len(files) >= 25
     # The scan covers the per-episode harness, its entry, the baselines,
-    # the deployment node with its script, the fleet and the training
-    # stack.
+    # the deployment node with its script, the fleet, the training stack,
+    # the mesh and the planners.
     rel = {os.path.relpath(p, REPO) for p in files}
     assert {f"dyobav_tpu_torch/{m}.py" for m in (
         "trackers/mpc_tracker", "interfaces/mpc_interface", "motion/agents",
@@ -45,12 +45,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "predictors/kfmp", "maps/preset", "sim/deploy", "sim/ros_adapter",
         "sim/plotter", "sim/fleet", "models/losses", "models/mdn",
         "models/data", "models/manager", "models/train",
-        "utils/density")} <= rel
+        "utils/density", "parallel/mesh", "planners/paths",
+        "planners/dijkstra", "planners/visibility",
+        "planners/global_plan")} <= rel
     assert "scripts/deploy_latency_torch.py" in rel
     bad = [(os.path.relpath(p, REPO), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                  "dyobav_tpu", "PIL")]
+                                  "dyobav_tpu", "PIL", "networkx", "pandas")]
     assert not bad, bad
 
 
@@ -96,3 +98,16 @@ def test_build_mpc_solver_defaults_to_cuda():
         engine.build_mpc_solver(engine.MpcConfiguration(),
                                 engine.CircularRobotSpecification())
     assert engine.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_and_sharded_sweep_default_to_cuda():
+    from dyobav_tpu_torch.parallel import mesh
+    from dyobav_tpu_torch.sim import sweep
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh()
+    for argv in (["--devices", "2"], ["--devices", "0"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sweep.main(argv)
