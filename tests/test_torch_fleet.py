@@ -1,11 +1,16 @@
 """The port's fleet (`dyobav_tpu_torch.sim.fleet` and the fleet scenario
 builders of `.sim.scenarios`) on the CPU: the builders against the JAX
-package's, the `predictor` argument against the default, and the port alone
-against tests/test_fleet.py's head-on and capacity bars.  The fleet in
-lockstep with the JAX fleet is tests/test_torch_fleet_lockstep.py; the
+package's, the `predictor` argument against the default, and
+tests/test_fleet.py's head-on and capacity bars.  The fleet in lockstep
+with the JAX fleet is tests/test_torch_fleet_lockstep.py; the
 crossing-pedestrian bar and the reciprocating agent are
-tests/test_torch_fleet_agents.py (files of their own, so that the suite's
-workers run the long closed loops side by side).
+tests/test_torch_fleet_agents.py.
+
+The head-on bar is held in tier-1 where it is decided, in lockstep with
+JAX in float64 (tests/test_torch_fleet_lockstep.py's `window`): from the
+poses of tests/test_fleet.py's JAX run two steps before the robots pass
+and before their goals.  The port's whole 60-step run is marked `slow`:
+20 s a step on the CPU beside the suite's six workers, eager.
 """
 import os
 
@@ -186,14 +191,79 @@ def test_predictor_argument_matches_the_default():
     assert default.smoothness.shape == (2, 2, 2)
 
 
+# tests/test_fleet.py's JAX run reaches these steps before each window: the
+# robots are 1.07 m apart at step 19 and pass at about 0.5 m two steps
+# later; they are done from step GOAL_AT + 4.
+PASS_AT, GOAL_AT = 19, 37
+HEAD_ON_GOALS = [[8.0, 0.2], [0.0, -0.2]]
+STRAIGHT_GAP = 2 * 0.2      # the lateral gap of the two straight references
+
+
+def _gap(poses):
+    """(2, 3) poses -> the distance between the two robots' centres."""
+    return float(np.hypot(*(poses[0, :2] - poses[1, :2])))
+
+
+@pytest.fixture(scope="module")
+def head_on_windows():
+    """tests/test_fleet.py's JAX run to PASS_AT and to GOAL_AT, then both
+    packages from JAX's poses in lockstep (`window`), one batch: the pass
+    window twice (lanes 0 and 1) and the goal window (lane 2).  Returns
+    the prefix at PASS_AT and the port's window results."""
+    from test_torch_fleet_lockstep import jax_prefixes, window
+
+    prefixes = jax_prefixes(head_on(js), 2, (PASS_AT, GOAL_AT), copies=2)
+    for pre in prefixes:
+        assert not pre["collided"].any() and not pre["done"].any()
+    assert (prefixes[1]["min_inter_robot"] > 0.95 * ROBOT.vehicle_width).all()
+    at_pass, at_goal = (pre["final_states"] for pre in prefixes)
+    rt = window("head-on windows (pass, pass, goal)",
+                [(s, HEAD_ON_GOALS, (), ()) for s in (at_pass, at_pass,
+                                                      at_goal)])
+    return prefixes[0], rt
+
+
+def test_head_on_pass_window_matches_jax(head_on_windows):
+    """tests/test_fleet.py's head-on bar where the robots pass: on the port,
+    no collision and a pass at about the fleet cost's safe distance,
+    widened beyond the straight-line gap; the closest approach lies inside
+    the window, and the two copies give equal lanes."""
+    from test_torch_fleet_lockstep import WINDOW
+
+    pre, rt = head_on_windows
+    starts = pre["final_states"]
+    min_inter = rt["min_inter_robot"][:2]
+    print(f"head-on pass: gap {_gap(starts)} m at step {PASS_AT}, least "
+          f"{min_inter.tolist()}, {_gap(rt['final_states'][0])} m at step "
+          f"{PASS_AT + WINDOW}")
+    assert not rt["collided"][:2].any(), f"fleet collision, {min_inter}"
+    assert (min_inter > 0.95 * ROBOT.vehicle_width).all()
+    assert STRAIGHT_GAP < 0.95 * ROBOT.vehicle_width
+    assert (min_inter > STRAIGHT_GAP + 0.05).all()
+    assert (min_inter < _gap(starts)).all()
+    assert (min_inter < _gap(rt["final_states"][0])).all()
+    for f, x in rt.items():
+        np.testing.assert_array_equal(x[0], x[1], err_msg=f)
+
+
+def test_head_on_goal_window_matches_jax(head_on_windows):
+    """tests/test_fleet.py's head-on bar at the goals: on the port, both
+    robots at their goals with no collision."""
+    _, rt = head_on_windows
+    print(f"head-on goal: steps used {rt['steps_used'][2]}")
+    assert rt["done"][2].all() and not rt["collided"][2].any()
+
+
+@pytest.mark.slow
 def test_fleet_head_on_avoidance():
     """tests/test_fleet.py's head-on bar at its FAST budget for 60 steps:
     two robots swapping ends of an 8 m corridor must pass each other
     without a collision, at about the fleet cost's safe distance, and both
-    reach their goals."""
+    reach their goals.  Slow; tier-1 holds the bar through the two windows
+    above."""
     run = tf.build_fleet_sim(CFG, ROBOT, FAST, n_robots=2, n_steps=60,
                              device="cpu")
-    res = run(stack([head_on(ts)] * 2), np.arange(2))
+    res = run(stack([head_on(ts)]), np.arange(1))
     collided, min_inter = res.collided.numpy(), res.min_inter_robot.numpy()
     done = res.done.numpy()
     print(f"head-on fleet: min inter-robot distance {min_inter}, steps used "
@@ -207,10 +277,5 @@ def test_fleet_head_on_avoidance():
     assert done.all(), f"robots did not reach goals: done={done}"
     # And they interacted: the straight-line gap (2 * 0.2 m) is below the
     # cost's safe distance, so the pass must have been widened.
-    straight_gap = 2 * 0.2
-    assert straight_gap < 0.95 * ROBOT.vehicle_width
-    assert (min_inter > straight_gap + 0.05).all()
-    # The two copies of the scenario are two lanes of one batch.
-    for f in tf.FleetResult._fields:
-        x = getattr(res, f)
-        assert torch.equal(x[0], x[1]), f
+    assert STRAIGHT_GAP < 0.95 * ROBOT.vehicle_width
+    assert (min_inter > STRAIGHT_GAP + 0.05).all()

@@ -1,9 +1,13 @@
 """The fleet's other agents on the CPU: tests/test_fleet.py's bar for one
 robot and a crossing pedestrian through the port's fleet
 (`dyobav_tpu_torch.sim.fleet`), and the preset reciprocating (back-and-forth)
-agent of `dyobav_tpu_torch.motion.models` against the JAX package's.  A
-file of its own beside tests/test_torch_fleet.py, so that the suite's
-workers run the two long closed loops side by side.
+agent of `dyobav_tpu_torch.motion.models` against the JAX package's.
+
+The crossing bar is held in tier-1 where it is decided, in lockstep with
+JAX in float64 (tests/test_torch_fleet_lockstep.py's `window`): from the
+poses of tests/test_fleet.py's JAX run (robot and pedestrian) before the
+pedestrian crosses the robot's path and before the goal.  The port's
+whole 50-step run is marked `slow`.
 """
 import numpy as np
 import pytest
@@ -13,7 +17,10 @@ from dyobav_tpu.motion import models as jm
 from dyobav_tpu_torch.motion import models as tm
 from dyobav_tpu_torch.sim import fleet as tf
 from dyobav_tpu_torch.sim import scenarios as ts
+from dyobav_tpu.sim import scenarios as js
 from test_torch_fleet import CFG, FAST, ROBOT, crossing_human, stack
+from test_torch_fleet_lockstep import (WINDOW, jax_prefixes,
+                                       pedestrian_after, window)
 
 torch.set_num_threads(1)
 
@@ -64,11 +71,65 @@ def test_reciprocating_model_round_trip():
     assert abs(abs(m(period - 2).numpy()[2]) - np.pi) < 1e-6
 
 
+# tests/test_fleet.py's JAX run reaches these steps before each window: the
+# pedestrian (0.3 m a step from (3, 4) to (3, -4)) is 1 m short of the
+# robot's path at step 10 and least far from the robot at steps 14-16; the
+# robot is done from step GOAL_AT + 4.
+CROSS_AT, GOAL_AT = 10, 32
+GOAL, HUMAN_GOAL = [[6.0, 0.0]], [[3.0, -4.0]]
+
+
+@pytest.fixture(scope="module")
+def crossing_windows():
+    """tests/test_fleet.py's JAX run to CROSS_AT and to GOAL_AT, then both
+    packages from JAX's poses (robot and pedestrian) in lockstep
+    (`window`), one batch: the crossing window (lane 0) and the goal window
+    (lane 1).  Returns the prefix at CROSS_AT and the port's results."""
+    prefixes = jax_prefixes(crossing_human(js), 1, (CROSS_AT, GOAL_AT),
+                            human_stagger=0.0)
+    for pre in prefixes:
+        assert not pre["collided"].any() and not pre["done"].any()
+    rt = window("crossing windows (crossing, goal)",
+                [(pre["final_states"], GOAL, pedestrian_after(n), HUMAN_GOAL)
+                 for pre, n in zip(prefixes, (CROSS_AT, GOAL_AT))],
+                human_stagger=0.0)
+    return prefixes[0], rt
+
+
+def test_crossing_window_matches_jax(crossing_windows):
+    """tests/test_fleet.py's crossing bar where the pedestrian crosses: on
+    the port, no collision, a finite clearance, and the least
+    robot-pedestrian distance inside the window, with the pedestrian from
+    one side of the robot's path to the other."""
+    pre, rt = crossing_windows
+    robot, human = pre["final_states"], pedestrian_after(CROSS_AT)
+    human_end = pedestrian_after(CROSS_AT + WINDOW)
+    d0 = float(np.hypot(*(robot[0, :2] - human[0])))
+    d1 = float(np.hypot(*(rt["final_states"][0, 0, :2] - human_end[0])))
+    clearance = rt["min_clearance"][0, 0]
+    print(f"crossing: robot-pedestrian {d0} m at step {CROSS_AT}, least "
+          f"{clearance}, {d1} m at step {CROSS_AT + WINDOW}")
+    assert not rt["collided"][0].any() and np.isfinite(clearance)
+    assert human[0, 1] > robot[0, 1] > human_end[0, 1]
+    assert clearance < min(d0, d1)
+    assert np.isinf(rt["min_inter_robot"]).all()
+
+
+def test_crossing_goal_window_matches_jax(crossing_windows):
+    """tests/test_fleet.py's crossing bar at the goal: on the port, the goal
+    reached with no collision."""
+    _, rt = crossing_windows
+    print(f"crossing goal: steps used {rt['steps_used'][1]}")
+    assert rt["done"][1].all() and not rt["collided"][1].any()
+
+
+@pytest.mark.slow
 def test_fleet_with_human():
     """tests/test_fleet.py's bar for one robot and one crossing pedestrian
     through the fleet (the H > 0 branch) at its FAST budget: clearance
     bookkeeping live, no collision, goal reached; no other robot, so the
-    inter-robot distance stays infinite."""
+    inter-robot distance stays infinite.  Slow; tier-1 holds the bar through
+    the two windows above."""
     run = tf.build_fleet_sim(CFG, ROBOT, FAST, n_robots=1, n_steps=50,
                              human_stagger=0.0, device="cpu")
     res = run(stack([crossing_human(ts)]), np.arange(1))

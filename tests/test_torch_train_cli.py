@@ -62,6 +62,25 @@ def _profile(out):
 
 
 def test_device_loop_writes_a_checkpoint_the_predictor_runs(trained):
+    """The device loop's checkpoint through the port's predictor, held to
+    the JAX package's `make_wta_predictor` on the same weights (converted
+    by `dyobav_tpu.models.port.torch_to_flax`), history, map and transform.
+
+    `alpha` flags each active cluster in both packages (`count > 0`), so it
+    sums to the number of clusters that the trained net's 20 hypotheses
+    fall into, which depends on where training lands: it is 0 or 1, each
+    horizon step has at least one cluster, and an inactive slot's mu and
+    std are zero.  The packages' clusters must be the same; mu and std
+    within 1e-3 m, the bar of tests/test_torch_wta_predictor.py (the net's
+    float32 hypotheses differ by rounding between the two frameworks, and
+    the world frame is 0.1 m a pixel)."""
+    import jax
+    import jax.numpy as jnp
+
+    from dyobav_tpu.models import port as jport
+    from dyobav_tpu.models import wta_net as jw
+    from dyobav_tpu.sim import batch as jb
+
     prof = _profile(trained)
     assert len(prof["val_loss"]) == 2 and np.isfinite(prof["val_loss"]).all()
     assert len(prof["loss"]) >= 2 and np.isfinite(prof["loss"]).all()
@@ -75,10 +94,26 @@ def test_device_loop_writes_a_checkpoint_the_predictor_runs(trained):
         y_max_before=HW)
     predict = make_wta_predictor(net, ref, transform, n_hor=3, device="cpu")
     hist = torch.tensor([[[[0.1 * i - 1.0, 0.5]] for i in range(5)]])
-    mu, std, alpha = predict(hist)                  # (1, 5, 1, 2) world
+    mu, std, alpha = (x.numpy() for x in predict(hist))   # (1, 5, 1, 2) world
     assert mu.shape == std.shape == (1, 3, 8, 2) and alpha.shape == (1, 3, 8)
-    assert torch.isfinite(mu).all() and torch.isfinite(std).all()
-    np.testing.assert_allclose(alpha.sum(-1).numpy(), 1.0, rtol=1e-5)
+    assert np.isfinite(mu).all() and np.isfinite(std).all()
+    assert np.isin(alpha, (0.0, 1.0)).all()
+    assert (alpha.sum(-1) >= 1).all()
+    off = alpha == 0
+    assert (mu[off] == 0).all() and (std[off] == 0).all()
+    print(f"trained checkpoint: clusters per horizon step "
+          f"{alpha.sum(-1).astype(int).tolist()}")
+
+    sd = torch.load(trained + ".pt", map_location="cpu", weights_only=True)
+    variables = jax.tree_util.tree_map(jnp.asarray, jport.torch_to_flax(sd))
+    pred_j = jb.make_wta_predictor(
+        lambda v, im: jw.ConvMultiHypoNet().apply(v, im, train=False),
+        variables, ref, transform, n_hor=3)
+    mu_j, std_j, alpha_j = (np.asarray(x) for x in jax.vmap(pred_j)(
+        jnp.asarray(hist.numpy())))
+    np.testing.assert_array_equal(alpha, alpha_j)
+    np.testing.assert_allclose(mu, mu_j, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(std, std_j, rtol=0, atol=1e-3)
 
 
 def test_host_loop(wsd_dir, tmp_path):
