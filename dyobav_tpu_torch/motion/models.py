@@ -16,6 +16,17 @@ import numpy as np
 import torch
 
 
+# Python numbers enter the model through the `.Scalar` overloads.  Written
+# as `0.5 * k1`, a number becomes a tensor without a forward-mode tangent;
+# under `jacfwd` torch fills that tangent with an efficient zero tensor and
+# takes the operator's output shape from its Python reference kernel
+# (`torch._refs`), which costs more host time than the operator.  The
+# overloads run the same kernels, so every value, tangent included, is the
+# same (`ops/costs.py` does the same for its constants).
+_mul = torch.ops.aten.mul.Scalar
+_div = torch.ops.aten.div.Scalar
+
+
 def unicycle_derivative(state: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
     v, w = action[0], action[1]
     return torch.stack([v * torch.cos(state[2]), v * torch.sin(state[2]), w])
@@ -24,14 +35,15 @@ def unicycle_derivative(state: torch.Tensor, action: torch.Tensor) -> torch.Tens
 def unicycle_step(state: torch.Tensor, action: torch.Tensor, ts: float,
                   rk4: bool = True) -> torch.Tensor:
     """Unicycle kinematics, RK4-integrated by default; the action is held
-    constant across the RK4 sub-steps, as in the reference."""
+    constant across the RK4 sub-steps, as in the reference.  ts is a
+    Python number."""
     if rk4:
-        k1 = ts * unicycle_derivative(state, action)
-        k2 = ts * unicycle_derivative(state + 0.5 * k1, action)
-        k3 = ts * unicycle_derivative(state + 0.5 * k2, action)
-        k4 = ts * unicycle_derivative(state + k3, action)
-        return state + (k1 + 2.0 * k2 + 2.0 * k3 + k4) / 6.0
-    return state + ts * unicycle_derivative(state, action)
+        k1 = _mul(unicycle_derivative(state, action), ts)
+        k2 = _mul(unicycle_derivative(state + _mul(k1, 0.5), action), ts)
+        k3 = _mul(unicycle_derivative(state + _mul(k2, 0.5), action), ts)
+        k4 = _mul(unicycle_derivative(state + k3, action), ts)
+        return state + _div(k1 + _mul(k2, 2.0) + _mul(k3, 2.0) + k4, 6.0)
+    return state + _mul(unicycle_derivative(state, action), ts)
 
 
 def omnidirectional_step(state: torch.Tensor, action: torch.Tensor,

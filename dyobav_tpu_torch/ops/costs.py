@@ -21,22 +21,33 @@ minima.  So the port uses `torch.maximum`/`torch.minimum` (via `_clip`,
 `_relu`) and `torch.amin`; never `clamp`, `relu` or `min(dim)`, whose
 gradients at ties differ.  `jnp.prod` over polygon edges becomes an
 explicit product (the same product rule, no data-dependent backward).
+
+Python numbers go through the `.Scalar` overloads and the block Hessian's
+tensor constants are lifted into its tangent levels (`ops/tangents.py`):
+the same values, without torch's Python reference kernels.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import torch
-from torch.func import hessian, jacfwd, vmap
+from torch.func import vmap
 
 from ..configs import CircularRobotSpecification, MpcConfiguration
 from ..motion.models import unicycle_step
+from . import tangents
 from .params import MpcParams
 
+_add = torch.ops.aten.add.Scalar
+_mul = torch.ops.aten.mul.Scalar
+_div = torch.ops.aten.div.Scalar
+_rsub = torch.ops.aten.rsub.Scalar
 
-def _relu(x: torch.Tensor) -> torch.Tensor:
-    """`jnp.maximum(0.0, x)`: gradient 1/2 at x == 0, as in JAX."""
-    return torch.maximum(x, torch.zeros_like(x))
+
+def _relu(x: torch.Tensor, zero: torch.Tensor | None = None) -> torch.Tensor:
+    """`jnp.maximum(0.0, x)`: gradient 1/2 at x == 0, as in JAX.  zero: a
+    0-dim zero at x's tangent levels (`tangents.lift`), else one is made."""
+    return torch.maximum(x, torch.zeros_like(x) if zero is None else zero)
 
 
 def _clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
@@ -97,18 +108,30 @@ def fleet_collision_cost(states_xy: torch.Tensor, others_xy: torch.Tensor,
 
 
 def _polygon_residuals(states_xy: torch.Tensor, stc_obs: torch.Tensor,
-                       n_edges: int) -> torch.Tensor:
+                       n_edges: int, zero: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """Per-(step, obstacle) inside-indicator, (N, Nstcobs):
     prod_edges relu(b - a0 x - a1 y), > 0 iff inside."""
     b = stc_obs[:, :n_edges]
     a0 = stc_obs[:, n_edges:2 * n_edges]
     a1 = stc_obs[:, 2 * n_edges:]
     res = _relu(b[None] - a0[None] * states_xy[:, 0, None, None]
-                - a1[None] * states_xy[:, 1, None, None])      # (N, Nobs, E)
+                - a1[None] * states_xy[:, 1, None, None], zero)  # (N, Nobs, E)
     out = res[..., 0]
     for e in range(1, n_edges):
         out = out * res[..., e]
     return out
+
+
+def _ellipse_geometry(ell: torch.Tensor, extra_margin: float) -> tuple:
+    """(x, y, rx, ry, cos, sin) of ellipse rows (x, y, rx, ry, ang, alpha),
+    the radii widened by extra_margin: the part of `_ellipse_indicator`
+    that does not depend on the states, which the block Hessian computes
+    once, outside its derivatives."""
+    return (ell[..., 0], ell[..., 1],
+            _add(_add(ell[..., 2], extra_margin), 1e-6),
+            _add(_add(ell[..., 3], extra_margin), 1e-6),
+            torch.cos(ell[..., 4]), torch.sin(ell[..., 4]))
 
 
 def _ellipse_indicator(states_xy: torch.Tensor, ell: torch.Tensor,
@@ -117,14 +140,18 @@ def _ellipse_indicator(states_xy: torch.Tensor, ell: torch.Tensor,
 
     ell: (N, M, 6) rows (x, y, rx, ry, ang, alpha) aligned with states.
     """
-    dx = states_xy[:, None, 0] - ell[..., 0]
-    dy = states_xy[:, None, 1] - ell[..., 1]
-    rx = ell[..., 2] + extra_margin + 1e-6
-    ry = ell[..., 3] + extra_margin + 1e-6
-    c, s = torch.cos(ell[..., 4]), torch.sin(ell[..., 4])
+    return _inside_ellipses(states_xy, _ellipse_geometry(ell, extra_margin))
+
+
+def _inside_ellipses(states_xy: torch.Tensor, geometry: tuple
+                     ) -> torch.Tensor:
+    """`_ellipse_indicator` from the ellipses' `_ellipse_geometry`."""
+    ex, ey, rx, ry, c, s = geometry
+    dx = states_xy[:, None, 0] - ex
+    dy = states_xy[:, None, 1] - ey
     u = (dx * c + dy * s) / rx
     v = (dx * s - dy * c) / ry
-    return 1.0 - u * u - v * v
+    return _rsub(u * u, 1.0) - v * v
 
 
 class CostBreakdown(NamedTuple):
@@ -276,6 +303,7 @@ def make_block_curvature(p: MpcParams, cfg: MpcConfiguration,
     seg_len_sq = torch.sum(seg_d * seg_d, dim=-1) + 1e-16
     others_cur = p.others0[1:, :2]
     ell_cur = p.dyn_obs[:, 0, :]                                # (M, 6)
+    ell_pred = torch.swapaxes(p.dyn_obs[:, 1:, :], 0, 1)        # (N, M, 6)
 
     ks = torch.arange(N, device=device)
     steps = dict(                                               # leading N
@@ -284,83 +312,103 @@ def make_block_curvature(p: MpcParams, cfg: MpcConfiguration,
         ref_speed=p.ref_speed,
         others=torch.swapaxes(p.others_pred[..., :2], 0, 1),    # (N, No, 2)
         q_stc=p.q_stc,
-        ell_pred=torch.swapaxes(p.dyn_obs[:, 1:, :], 0, 1),     # (N, M, 6)
+        alpha_pred=ell_pred[..., 5],                            # (N, M)
+        pred_raw=_ellipse_geometry(ell_pred[:, None], 0.0),     # (N, 1, M)
+        pred_soft=_ellipse_geometry(ell_pred[:, None], robot.vehicle_margin),
         q_dyn=p.q_dyn,
         lo_a=c_lo[:N], hi_a=c_hi[:N], lo_w=c_lo[N:], hi_w=c_hi[N:],
     )
+    # The problem's constants, passed as an argument so that the derivatives
+    # lift them into their tangent levels (`tangents.lift`).
+    consts = dict(
+        seg_a=seg_a, seg_d=seg_d, seg_len_sq=seg_len_sq,
+        others_cur=others_cur, stc_obs=p.stc_obs, sN=p.sN,
+        alpha_cur=ell_cur[:, 5],
+        cur_raw=_ellipse_geometry(ell_cur[None], 0.0),          # (1, M)
+        cur_soft=_ellipse_geometry(ell_cur[None], margin_soft),
+        qvel=qvel, rv=rv, rw=rw, qN=qN, qthetaN=qthetaN, qrpd=qrpd,
+        acc_pen=acc_pen, w_acc_pen=w_acc_pen,
+        zero=torch.zeros((), dtype=dtype, device=device),
+        one=torch.ones((), dtype=dtype, device=device))
 
-    def hinges_k(x_k, st):
+    def hinges_k(x_k, st, K):
         """(s_k, d_k (M,)): step k's contributions to S and D_i."""
         xy = x_k[:2][None]
-        stc = _polygon_residuals(xy, p.stc_obs, n_edges)[0]
-        cur = _ellipse_indicator(xy, ell_cur[None], 0.0)[0]
-        prd = _ellipse_indicator(xy, st["ell_pred"][None], 0.0)[0]
-        return torch.sum(stc), _relu(cur) + _relu(prd)
+        stc = _polygon_residuals(xy, K["stc_obs"], n_edges, K["zero"])[0]
+        cur = _inside_ellipses(xy, K["cur_raw"])[0]
+        prd = _inside_ellipses(xy, st["pred_raw"])[0]
+        return torch.sum(stc), _relu(cur, K["zero"]) + _relu(prd, K["zero"])
 
-    def phi_k(zz, st, ya, yw, c, w, wtot):
+    def phi_k(zz, args):
         """Step k's slice of the merit (each original term appears in
         exactly one phi_k; the penalty channel enters weight-linearized)."""
+        st, ya, yw, c, w, wtot, K = args
+        zero = K["zero"]
         x_k, u_k, u_km1 = zz[:ns], zz[ns:ns + nu], zz[ns + nu:]
         xy = x_k[:2]
         # refpath: min over segments j >= k (shrinking window).
-        rel = xy[None] - seg_a
-        t = _clip(torch.sum(rel * seg_d, dim=-1) / seg_len_sq, 0.0, 1.0)
-        closest = seg_a + t[:, None] * seg_d
+        rel = xy[None] - K["seg_a"]
+        t = _clip(torch.sum(rel * K["seg_d"], dim=-1) / K["seg_len_sq"],
+                  zero, K["one"])
+        closest = K["seg_a"] + t[:, None] * K["seg_d"]
         dist_sq = torch.sum((xy[None] - closest) ** 2, dim=-1)
         masked = torch.where(st["window"], dist_sq,
                              torch.full_like(dist_sq, float("inf")))
-        cost = qrpd * torch.amin(masked)
-        cost = cost + qvel * (u_k[0] - st["ref_speed"]) ** 2
-        cost = cost + rv * u_k[0] ** 2 + rw * u_k[1] ** 2
+        cost = K["qrpd"] * torch.amin(masked)
+        cost = cost + K["qvel"] * (u_k[0] - st["ref_speed"]) ** 2
+        cost = cost + K["rv"] * u_k[0] ** 2 + K["rw"] * u_k[1] ** 2
         # fleet: current (skip slot 0, weight 1000) + predictive (step k).
-        dcur = xy[None] - others_cur
-        cost = cost + 1000.0 * torch.sum(_relu(
-            vw2 - torch.sum(dcur * dcur, dim=-1)))
+        dcur = xy[None] - K["others_cur"]
+        cost = cost + _mul(torch.sum(_relu(
+            _rsub(torch.sum(dcur * dcur, dim=-1), vw2), zero)), 1000.0)
         dprd = xy[None] - st["others"]
-        cost = cost + 10.0 * torch.sum(_relu(
-            vw2 - torch.sum(dprd * dprd, dim=-1)))
+        cost = cost + _mul(torch.sum(_relu(
+            _rsub(torch.sum(dprd * dprd, dim=-1), vw2), zero)), 10.0)
         # static polygons.
-        stc_prod = _polygon_residuals(xy[None], p.stc_obs, n_edges)[0]
+        stc_prod = _polygon_residuals(xy[None], K["stc_obs"], n_edges,
+                                      zero)[0]
         cost = cost + st["q_stc"] * torch.sum(stc_prod ** 2)
         # dynamic ellipses: current (soft margin, weight 1000·α) +
         # predictive (vehicle margin, weight q_dyn·α).
-        ind_cur_soft = _ellipse_indicator(xy[None], ell_cur[None],
-                                          margin_soft)[0]
-        cost = cost + 1000.0 * torch.sum(ell_cur[:, 5]
-                                         * _relu(ind_cur_soft) ** 2)
-        ell_prd = st["ell_pred"]
-        ind_prd_soft = _ellipse_indicator(xy[None], ell_prd[None],
-                                          robot.vehicle_margin)[0]
-        cost = cost + st["q_dyn"] * torch.sum(ell_prd[:, 5]
-                                              * _relu(ind_prd_soft) ** 2)
+        ind_cur_soft = _inside_ellipses(xy[None], K["cur_soft"])[0]
+        cost = cost + _mul(torch.sum(K["alpha_cur"]
+                                     * _relu(ind_cur_soft, zero) ** 2),
+                           1000.0)
+        ind_prd_soft = _inside_ellipses(xy[None], st["pred_soft"])[0]
+        cost = cost + st["q_dyn"] * torch.sum(st["alpha_pred"]
+                                              * _relu(ind_prd_soft, zero) ** 2)
         # terminal (k = N-1 only).
-        term = (qN * ((x_k[0] - p.sN[0]) ** 2 + (x_k[1] - p.sN[1]) ** 2)
-                + qthetaN * (x_k[2] - p.sN[2]) ** 2)
+        sN = K["sN"]
+        term = (K["qN"] * ((x_k[0] - sN[0]) ** 2 + (x_k[1] - sN[1]) ** 2)
+                + K["qthetaN"] * (x_k[2] - sN[2]) ** 2)
         cost = cost + torch.where(st["last"], term, torch.zeros_like(term))
         # acceleration cost + this step's ALM components.
-        acc = (u_k[0] - u_km1[0]) / ts
-        wacc = (u_k[1] - u_km1[1]) / ts
-        cost = cost + acc_pen * acc ** 2 + w_acc_pen * wacc ** 2
+        acc = _div(u_k[0] - u_km1[0], ts)
+        wacc = _div(u_k[1] - u_km1[1], ts)
+        cost = cost + K["acc_pen"] * acc ** 2 + K["w_acc_pen"] * wacc ** 2
         sh_a = acc + ya / c
         sh_w = wacc + yw / c
         alm_a = sh_a - _clip(sh_a, st["lo_a"], st["hi_a"])
         alm_w = sh_w - _clip(sh_w, st["lo_w"], st["hi_w"])
-        cost = cost + 0.5 * c * (alm_a ** 2 + alm_w ** 2)
+        cost = cost + _mul(c, 0.5) * (alm_a ** 2 + alm_w ** 2)
         # penalty channel, weight-linearized: c·Σᵢ wᵢ (s_k + d_ik).
-        s_k, d_k = hinges_k(x_k, st)
+        s_k, d_k = hinges_k(x_k, st, K)
         cost = cost + c * (wtot * s_k + torch.dot(w, d_k))
         return cost
+
+    hess_k = tangents.hessian(phi_k)
+    jac_hinges = tangents.jacfwd(lambda x_k, a: hinges_k(x_k, *a))
 
     def block_fn(X, u_flat, y, c):
         U = u_flat.reshape(N, nu)
         U_km1 = torch.cat([p.u_prev[None].to(U.dtype), U[:-1]], dim=0)
         ZZ = torch.cat([X, U, U_km1], dim=1)                    # (N, 7)
-        s_all, d_all = vmap(hinges_k)(X, steps)                 # (N,), (N, M)
+        s_all, d_all = vmap(hinges_k, in_dims=(0, 0, None))(X, steps, consts)
         w = (torch.sum(s_all) + torch.sum(d_all, dim=0)).detach()
         wtot = torch.sum(w)
-        C7 = vmap(hessian(phi_k), in_dims=(0, 0, 0, 0, None, None, None))(
-            ZZ, steps, y[:N], y[N:], c, w, wtot)
-        gs, gd = vmap(jacfwd(hinges_k))(X, steps)
+        C7 = vmap(hess_k, in_dims=(0, (0, 0, 0, None, None, None, None)))(
+            ZZ, (steps, y[:N], y[N:], c, w, wtot, consts))
+        gs, gd = vmap(jac_hinges, in_dims=(0, (0, None)))(X, (steps, consts))
         gF = gs[:, None, :] + gd                                # (N, M, ns)
         return C7, gF
 

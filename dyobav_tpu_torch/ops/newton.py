@@ -28,6 +28,7 @@ import torch
 from torch.func import grad, grad_and_value, jacfwd, jvp, vmap
 
 from ..configs import SolverConfiguration
+from . import tangents
 from .costs import _clip
 from .spd import spd_solve, spd_solve_plain
 
@@ -64,6 +65,22 @@ class NewtonResult(NamedTuple):
     infeasibility: torch.Tensor  # (B,)
     penalty: torch.Tensor        # (B,)
     converged: torch.Tensor      # (B,) bool
+
+
+def step_derivatives(step, zk: torch.Tensor, ns: int):
+    """First and second derivatives of the dynamics step at N points.
+
+    step(x, a) -> next state; zk: (N, ns + nu) rows (x_k, a_k).  Returns
+    AB (N, ns, ns+nu) and Hf (N, ns, ns+nu, ns+nu), `vmap(jacfwd(...))`
+    and `vmap(jacfwd(jacfwd(...)))` of the step as JAX takes them; the
+    inner basis is lifted into the outer tangent level (`ops/tangents.py`).
+    """
+    def step_z(zz, _=None):
+        return step(zz[:ns], zz[ns:])
+
+    return (vmap(tangents.jacfwd(step_z))(zk),
+            vmap(tangents.jacfwd(
+                lambda zz, _: tangents.jacfwd(step_z)(zz)))(zk))
 
 
 def make_structured_hessian(split, proj_rect, mode: str = "structured"):
@@ -104,11 +121,7 @@ def make_structured_hessian(split, proj_rect, mode: str = "structured"):
         prevs = torch.cat([s0[None].to(dtype), X[:-1]], dim=0)
         zk = torch.cat([prevs, u.reshape(N, nu)], dim=1)  # (N, ns+nu)
 
-        def step_z(zz):
-            return step(zz[:ns], zz[ns:])
-
-        AB = vmap(jacfwd(step_z))(zk)                    # (N, ns, ns+nu)
-        Hf = vmap(jacfwd(jacfwd(step_z)))(zk)            # (N, ns, ns+nu, ns+nu)
+        AB, Hf = step_derivatives(step, zk, ns)
         A, Bm = AB[..., :ns], AB[..., ns:]
 
         # E_k: (nu, n) one-hot selector of u_k's slice of the flat vector.

@@ -11,10 +11,11 @@ each with its cold pre-solve; one step is their difference.
 
 --profile runs the 1-step run under cProfile and prints the share of its
 time inside `torch._refs` / `torch._prims` (forward-mode AD on a tensor with
-no tangent goes there in some torch builds).  --reverse-mode swaps the block
-Hessian's forward-mode derivatives (`hessian`, `jacfwd`) for reverse-mode
-ones (`jacrev`) in this process only, to time what that costs; the numbers
-then differ from the port's at rounding level.
+no tangent goes there, `dyobav_tpu_torch/ops/tangents.py`).  --reverse-mode
+swaps the block Hessian's and the step's forward-mode derivatives
+(`ops/tangents.py`'s `hessian`, `jacfwd`) for reverse-mode ones (`jacrev`)
+in this process only, to time what that costs; the numbers then differ
+from the port's at rounding level.
 """
 import argparse
 import cProfile
@@ -40,13 +41,21 @@ FAST = configs.SolverConfiguration(max_inner_iters=8, max_outer_iters=2,
 
 
 def reverse_mode():
-    """Patch `ops.costs` and `ops.newton` to take reverse-mode derivatives."""
+    """Patch `ops.tangents` to take reverse-mode derivatives."""
     from torch.func import jacrev
 
-    from dyobav_tpu_torch.ops import costs, newton
-    costs.hessian = lambda f: jacrev(jacrev(f))
-    costs.jacfwd = jacrev
-    newton.jacfwd = jacrev
+    from dyobav_tpu_torch.ops import tangents
+
+    def rev(f, times):
+        def d(x, consts=None):
+            g = lambda x_: f(x_, consts)  # noqa: E731
+            for _ in range(times):
+                g = jacrev(g)
+            return g(x)
+        return d
+
+    tangents.hessian = lambda f: rev(f, 2)
+    tangents.jacfwd = lambda f: rev(f, 1)
 
 
 def run(steps):

@@ -18,6 +18,7 @@ tests/test_torch_sweep.py.
 import dataclasses
 import functools
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax.numpy as jnp
 import numpy as np
@@ -83,13 +84,17 @@ def check_closed_loop(multistart: bool):
     tests/test_torch_batch_sim_ladder.py (multistart off), which is a file
     of its own so that the two long JAX compiles can run side by side."""
     sc_j, sc_t, stream = world()
-    res_j, (traj_j, hum_j) = jb.build_batch_sim(
-        CFG, ROBOT, LOOP, n_steps=STEPS, multistart=multistart,
-        record_traj=True, stagger_stream=stream)(sc_j, jnp.arange(B))
-    res_t, (traj_t, hum_t) = tb.build_batch_sim(
-        TCFG, TROBOT, _port_cfg(LOOP), n_steps=STEPS, multistart=multistart,
-        record_traj=True, stagger_stream=stream, device="cpu")(
-        sc_t, np.arange(B))
+    # JAX's sim in a second thread, so that its compile overlaps the port's
+    # run.
+    with ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(lambda: jb.build_batch_sim(
+            CFG, ROBOT, LOOP, n_steps=STEPS, multistart=multistart,
+            record_traj=True, stagger_stream=stream)(sc_j, jnp.arange(B)))
+        res_t, (traj_t, hum_t) = tb.build_batch_sim(
+            TCFG, TROBOT, _port_cfg(LOOP), n_steps=STEPS,
+            multistart=multistart, record_traj=True, stagger_stream=stream,
+            device="cpu")(sc_t, np.arange(B))
+        res_j, (traj_j, hum_j) = jax_run.result()
     traj_j, traj_t = np.asarray(traj_j), traj_t.numpy()
     assert traj_t.shape == traj_j.shape == (STEPS, B, 3)
     assert hum_t.shape == np.asarray(hum_j).shape == (STEPS, B, 1, 2)

@@ -262,12 +262,13 @@ def _lockstep(scenarios, programs, ticks, humans_of=None, n_humans=None):
     both nodes with their transports, and both float64 step programs'
     actions and last warm start on the nodes' inputs.  JAX's float64
     program runs in a second thread, tick by tick as the nodes make its
-    inputs, so that its compile overlaps the nodes' run."""
+    inputs, and JAX's node ticks in a third beside the port's, so that
+    their compiles overlap the nodes' run."""
     _, _, jsc, _ = scenarios
     (jn, jt), (tn, tt) = _nodes(scenarios, programs, n_humans)
     state = np.asarray(jsc.robot_start, float)
     out, inputs, to_jax = [], [], queue.Queue()
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         jax64 = pool.submit(_jax_float64, scenarios, programs, to_jax, ticks)
         for humans in _worlds(ticks, jsc):
             if humans_of is not None:
@@ -275,7 +276,9 @@ def _lockstep(scenarios, programs, ticks, humans_of=None, n_humans=None):
             poses = {f"a{i}": (p[0], p[1]) for i, p in enumerate(humans)}
             for tr in (jt, tt):
                 _feed(tr, state, poses)
-            ja, ta = jn.control_tick(), tn.control_tick()
+            ja = pool.submit(jn.control_tick)
+            ta = tn.control_tick()
+            ja = ja.result()
             out.append((np.asarray(ja), np.asarray(ta),
                         int(jn.fused["ref_idx"]), int(tn.fused["ref_idx"])))
             inputs.append((np.asarray(tn.robot_pose, np.float32),

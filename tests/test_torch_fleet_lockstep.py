@@ -6,12 +6,14 @@ tests/test_torch_engine.py): a weak cold profile would make the candidate
 pick's ties coin flips (ROADMAP.md, section C).
 
 Three runs: the head-on corridor at lateral offsets 0.2 and 0.35 as one
-batch (two robots, no pedestrian), one robot with a crossing pedestrian,
-and two random map scenarios of three robots and one pedestrian (static
-polygons, the map's routes).  The packages draw the pedestrian stagger
-from different random streams, so the runs with a pedestrian set it to 0.
-Each JAX run goes in a second thread while the port's runs, so that its
-compile overlaps the port's CPU run.
+batch (two robots, no pedestrian) here, one robot with a crossing
+pedestrian (tests/test_torch_fleet_lockstep_human.py) and two random map
+scenarios of three robots and one pedestrian (static polygons, the map's
+routes; tests/test_torch_fleet_lockstep_map.py), files of their own so
+that the suite's workers run them side by side.  The packages draw the
+pedestrian stagger from different random streams, so the runs with a
+pedestrian set it to 0.  Each JAX run goes in a second thread while the
+port's runs, so that its compile overlaps the port's CPU run.
 
 `jax_prefixes` and `window` serve the windows of tests/test_torch_fleet.py
 and tests/test_torch_fleet_agents.py, which hold tests/test_fleet.py's bars
@@ -32,18 +34,15 @@ from concurrent.futures import ThreadPoolExecutor
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from dyobav_tpu import configs as jcfg
 from dyobav_tpu.sim import batch as jbatch
 from dyobav_tpu.sim import fleet as jf
-from dyobav_tpu.sim import harness as jh
 from dyobav_tpu.sim import scenarios as js
 from dyobav_tpu_torch import configs as tcfg
 from dyobav_tpu_torch.convert import config_from_dict
 from dyobav_tpu_torch.sim import fleet as tf
-from dyobav_tpu_torch.sim import harness as th
 from dyobav_tpu_torch.sim import scenarios as ts
 from test_fleet import FAST as JAX_FAST
 from test_torch_fleet import BASE_SPEED, crossing_human, head_on, stack
@@ -198,25 +197,3 @@ def test_head_on_lockstep_matches_jax():
     # The robots drove towards each other.
     assert (rt["final_states"][:, 0, 0] > 0.2).all()
     assert (rt["final_states"][:, 1, 0] < 7.8).all()
-
-
-def test_crossing_human_lockstep_matches_jax():
-    rt = lockstep("one robot, crossing pedestrian",
-                  jax_batch([crossing_human(js)]),
-                  stack([crossing_human(ts)]), 1, 4, human_stagger=0.0)
-    assert np.isfinite(rt["min_clearance"]).all()
-    assert np.isinf(rt["min_inter_robot"]).all()
-
-
-@pytest.mark.skipif(not os.path.exists(os.path.join(DATA, "mymap.pgm")),
-                    reason="warehouse data not imported")
-def test_map_fleet_lockstep_matches_jax():
-    jbase = jh.MainBase(evaluation=True, seed=0)
-    tbase = th.MainBase(evaluation=True, seed=0)
-    rt = lockstep(
-        "map, 3 robots, 1 pedestrian",
-        js.random_fleet_scenarios(jbase, 2, n_robots=3, n_humans=1, seed=0),
-        ts.random_fleet_scenarios(tbase, 2, n_robots=3, n_humans=1, seed=0),
-        3, 3, human_stagger=0.0)
-    assert np.isfinite(rt["min_static_clearance"]).all()
-    assert np.isfinite(rt["min_inter_robot"]).all()

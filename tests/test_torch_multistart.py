@@ -3,6 +3,8 @@
 against the JAX package's, on the CPU, at tests/test_batch_sim.py's FAST
 budget under Cholesky semantics (see tests/test_torch_batch_sim.py).
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -42,14 +44,18 @@ def test_solve_batch_multistart_matches_jax():
           ).astype(np.float32)
 
     solve_j = jb.build_lane_solvers(CFG, ROBOT, FAST)[3]
-    rj, oj = solve_j(JaxParams(*[jnp.asarray(x) for x in P]),
-                     jnp.asarray(U0), jnp.asarray(P.u_prev))
     solve_t = tb.build_lane_solvers(TCFG, TROBOT, _port_cfg(FAST),
                                     device="cpu")[3]
-    syncs = tengine.any_lane.syncs
-    rt, ot = solve_t(params_from_numpy(P), torch.from_numpy(U0),
-                     torch.from_numpy(P.u_prev))
-    assert tengine.any_lane.syncs == syncs + 1     # one host sync per call
+    # JAX's solve in a second thread, so that its compile overlaps the
+    # port's solve.
+    with ThreadPoolExecutor(1) as pool:
+        jax_run = pool.submit(solve_j, JaxParams(*[jnp.asarray(x) for x in P]),
+                              jnp.asarray(U0), jnp.asarray(P.u_prev))
+        syncs = tengine.any_lane.syncs
+        rt, ot = solve_t(params_from_numpy(P), torch.from_numpy(U0),
+                         torch.from_numpy(P.u_prev))
+        assert tengine.any_lane.syncs == syncs + 1  # one host sync per call
+        rj, oj = jax_run.result()
     rj, rt = _np(rj), _np(rt)
     np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
     np.testing.assert_array_equal(rt["converged"], rj["converged"])
