@@ -29,6 +29,7 @@ import torch
 
 from ..configs import WtaNetConfiguration
 from ..ops.engine import resolve_device, to_host
+from ..utils.profiling import span
 from . import losses
 from .heatmap import traj_to_input_batch
 from .wta_net import ConvMultiHypoNet, backbone_fc_input, full_f32
@@ -166,12 +167,15 @@ class NetworkManager:
     # --------------------------------------------------- device-resident train
     def _eval_chunk(self, trajs, offsets, labels, n_batches: int, batch_size,
                     ref_map, k_top: int) -> float:
-        vals = [self._eval_step_fused(trajs[s:s + batch_size],
-                                      offsets[s:s + batch_size],
-                                      labels[s:s + batch_size], ref_map,
-                                      k_top)
-                for s in range(0, n_batches * batch_size, batch_size)]
-        return float(to_host(torch.stack(vals).mean()))
+        """The mean loss of n_batches validation batches: the span
+        `train.validate`."""
+        with span("train.validate", trajs):
+            vals = [self._eval_step_fused(trajs[s:s + batch_size],
+                                          offsets[s:s + batch_size],
+                                          labels[s:s + batch_size], ref_map,
+                                          k_top)
+                    for s in range(0, n_batches * batch_size, batch_size)]
+            return float(to_host(torch.stack(vals).mean()))
 
     def train_on_device(self, data_handler, batch_size: int, epochs: int,
                         k_top_list: List[int] | None = None,
@@ -243,11 +247,12 @@ class NetworkManager:
                 n_chunks, chunk_steps, batch_size)
             ep_losses = []
             for ci in range(n_chunks):
-                chunk = torch.stack([
-                    self._train_step_fused(trajs[idx], offsets[idx],
-                                           labels[idx], ref_map, k_top, r)
-                    for idx in perm[ci]])
-                vals = to_host(chunk)
+                with span("train.chunk", trajs):
+                    chunk = torch.stack([
+                        self._train_step_fused(trajs[idx], offsets[idx],
+                                               labels[idx], ref_map, k_top, r)
+                        for idx in perm[ci]])
+                    vals = to_host(chunk)
                 if np.isnan(vals).any():
                     print("Loss is NaN — training aborted.")
                     self.complete = False

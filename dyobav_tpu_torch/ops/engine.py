@@ -20,6 +20,7 @@ from torch.func import vmap
 
 from ..configs import (CircularRobotSpecification, MpcConfiguration,
                        SolverConfiguration)
+from ..utils.profiling import span
 from . import costs
 from .newton import make_alm_newton_solver
 from .panoc import make_panoc_solver
@@ -148,24 +149,25 @@ def escalate_tail(sol, runs, slots, res_tol, ok_of):
     lane takes its re-solve where that converged -- a band lane (already
     ok) only on a clear cost gain, or on a residual gain that does not
     regress cost.  A batch with no such lane skips the stage: one host
-    sync per stage."""
-    for run, K in zip(runs, slots):
+    sync per stage.  A stage that runs is the span `solve.stage.<i>`."""
+    for i, (run, K) in enumerate(zip(runs, slots)):
         ok = ok_of(sol)
         fail = torch.logical_not(ok)
         if res_tol is not None:
             fail = fail | (sol.residual > res_tol)
         if not any_lane(fail):
             continue
-        idx, slot, in_slot = gather_slots(fail, K)
-        deep = run(idx, sol)
-        cost_eps = 1e-6 * (1.0 + torch.abs(sol.cost))
-        cost_gain = deep.cost[slot] <= sol.cost - 1e3 * cost_eps
-        band_better = cost_gain | (
-            (deep.residual[slot] <= sol.residual)
-            & (deep.cost[slot] <= sol.cost + cost_eps))
-        take = in_slot & ok_of(deep)[slot] & (
-            torch.logical_not(ok) | band_better)
-        sol = merge_slots(take, slot, sol, deep)
+        with span(f"solve.stage.{i}", fail):
+            idx, slot, in_slot = gather_slots(fail, K)
+            deep = run(idx, sol)
+            cost_eps = 1e-6 * (1.0 + torch.abs(sol.cost))
+            cost_gain = deep.cost[slot] <= sol.cost - 1e3 * cost_eps
+            band_better = cost_gain | (
+                (deep.residual[slot] <= sol.residual)
+                & (deep.cost[slot] <= sol.cost + cost_eps))
+            take = in_slot & ok_of(deep)[slot] & (
+                torch.logical_not(ok) | band_better)
+            sol = merge_slots(take, slot, sol, deep)
     return sol
 
 
@@ -295,13 +297,15 @@ def _build_mpc_solver_uncached(cfg, robot, solver_cfg, dtype, method: str,
 
         def solve_batch_escalated(Z, U0) -> MpcSolve:
             Z, U0 = as_input(Z), as_input(U0)
-            sol = solve_batch(Z, U0)
-            runs = [
-                lambda idx, cur, stage=stage, cont=cont: stage(
-                    Z[idx], cur.u[idx] if cont else U0[idx])
-                for stage, cont in zip(stages, from_iterate)]
-            return escalate_tail(sol, runs, slots(Z.shape[0]), res_tol,
-                                 ok_of=lambda r: r.exit_ok)
+            with span("solve.escalated", Z):
+                with span("solve.warm", Z):
+                    sol = solve_batch(Z, U0)
+                runs = [
+                    lambda idx, cur, stage=stage, cont=cont: stage(
+                        Z[idx], cur.u[idx] if cont else U0[idx])
+                    for stage, cont in zip(stages, from_iterate)]
+                return escalate_tail(sol, runs, slots(Z.shape[0]), res_tol,
+                                     ok_of=lambda r: r.exit_ok)
 
     return MpcSolverBundle(
         solve=solve,

@@ -28,6 +28,7 @@ import torch
 from torch.func import grad, grad_and_value, jacfwd, jvp, vmap
 
 from ..configs import SolverConfiguration
+from ..utils.profiling import lane_counter, span
 from . import tangents
 from .costs import _clip
 from .spd import spd_solve, spd_solve_plain
@@ -337,47 +338,53 @@ def make_alm_newton_solver(
         prev_inf = torch.zeros(B, dtype=dtype, device=device)
         y_solved, c_solved = y, c
 
+        iters = lane_counter("newton.iterations", u)
         for is_boundary in boundary:
-            frozen = done | outer_done
-            # One exact Hessian per iteration; the substeps share it (chord
-            # method) while the active set and gradient are refreshed.
-            H = merit_hess(u, y, c, P)
-            u_new, lam_new, improved = substep(u, psi_u, g_u, lam, H, y, c,
-                                               frozen, P)
-            for _ in range(n_substeps - 1):
-                psi_mid, g_mid = merit_grad(u_new, y, c, P)
-                u_new, lam_new, improved = substep(
-                    u_new, psi_mid, g_mid, lam_new, H, y, c, frozen, P)
+            with span("newton.iteration", u):
+                frozen = done | outer_done
+                if iters is not None:
+                    iters += torch.logical_not(frozen)
+                # One exact Hessian per iteration; the substeps share it
+                # (chord method) while the active set and gradient are
+                # refreshed.
+                H = merit_hess(u, y, c, P)
+                u_new, lam_new, improved = substep(u, psi_u, g_u, lam, H, y,
+                                                   c, frozen, P)
+                for _ in range(n_substeps - 1):
+                    psi_mid, g_mid = merit_grad(u_new, y, c, P)
+                    u_new, lam_new, improved = substep(
+                        u_new, psi_mid, g_mid, lam_new, H, y, c, frozen, P)
 
-            # Masked ALM stage-boundary update.
-            if is_boundary:
-                y_b, c_b, inf_b = alm_update(u_new, y, c, prev_inf, P)
-                upd = torch.logical_not(outer_done)
-                y_new = torch.where(upd[:, None], y_b, y)
-                c_new = torch.where(upd, c_b, c)
-                prev_inf_new = torch.where(upd, inf_b, prev_inf)
-                outer_done_new = outer_done | (upd
-                                               & (inf_b <= scfg.constraint_tol))
-            else:
-                upd = false
-                y_new, c_new = y, c
-                prev_inf_new, outer_done_new = prev_inf, outer_done
+                # Masked ALM stage-boundary update.
+                if is_boundary:
+                    y_b, c_b, inf_b = alm_update(u_new, y, c, prev_inf, P)
+                    upd = torch.logical_not(outer_done)
+                    y_new = torch.where(upd[:, None], y_b, y)
+                    c_new = torch.where(upd, c_b, c)
+                    prev_inf_new = torch.where(upd, inf_b, prev_inf)
+                    outer_done_new = outer_done | (
+                        upd & (inf_b <= scfg.constraint_tol))
+                else:
+                    upd = false
+                    y_new, c_new = y, c
+                    prev_inf_new, outer_done_new = prev_inf, outer_done
 
-            psi_new, g_new = merit_grad(u_new, y_new, c_new, P)
-            r_norm = torch.amax(torch.abs(u_new - proj_box(u_new - g_new)),
-                                dim=-1)
-            done_new = done | (r_norm <= scfg.tol) | (
-                torch.logical_not(improved) & (lam >= 1e8))
-            done_new = torch.where(upd, false, done_new)
-            lam_new = torch.where(upd, torch.full_like(lam_new, 1e-3),
-                                  lam_new)
-            # The multipliers the accepted iterate was solved under.
-            y_solved = torch.where(outer_done[:, None], y_solved, y)
-            c_solved = torch.where(outer_done, c_solved, c)
+                psi_new, g_new = merit_grad(u_new, y_new, c_new, P)
+                r_norm = torch.amax(
+                    torch.abs(u_new - proj_box(u_new - g_new)), dim=-1)
+                done_new = done | (r_norm <= scfg.tol) | (
+                    torch.logical_not(improved) & (lam >= 1e8))
+                done_new = torch.where(upd, false, done_new)
+                lam_new = torch.where(upd, torch.full_like(lam_new, 1e-3),
+                                      lam_new)
+                # The multipliers the accepted iterate was solved under.
+                y_solved = torch.where(outer_done[:, None], y_solved, y)
+                c_solved = torch.where(outer_done, c_solved, c)
 
-            u, psi_u, g_u, lam, done = u_new, psi_new, g_new, lam_new, done_new
-            y, c, prev_inf, outer_done = (y_new, c_new, prev_inf_new,
-                                          outer_done_new)
+                u, psi_u, g_u, lam, done = (u_new, psi_new, g_new, lam_new,
+                                            done_new)
+                y, c, prev_inf, outer_done = (y_new, c_new, prev_inf_new,
+                                              outer_done_new)
 
         r_final, settled = stationarity_probe(u, y_solved, c_solved, P)
         f, f1, f2 = objective_b(u, P)
@@ -388,30 +395,35 @@ def make_alm_newton_solver(
             converged=(infeas <= scfg.constraint_tol)
             & ((r_final <= scfg.tol) | settled))
 
-    def inner_solve(u0, y, c, P, n_iters: int):
+    def inner_solve(u0, y, c, P, n_iters: int, iters, kept):
         """n_iters LM-Newton iterations at fixed (y, c); a lane stops moving
-        once done.  Returns (u, scaled residual)."""
+        once done.  Returns (u, scaled residual).  `iters` (a lane counter
+        or None) counts each lane's iterations before it is done, lanes
+        `kept` by the staged loop excepted."""
         B = u0.shape[0]
         psi_u, g_u = merit_grad(u0, y, c, P)
         u = u0
         lam = torch.full((B,), 1e-3, dtype=dtype, device=device)
         done = torch.zeros(B, dtype=torch.bool, device=device)
         for _ in range(n_iters):
-            # One exact Hessian per iteration; the substeps share it, as in
-            # the fused loop.
-            H = merit_hess(u, y, c, P)
-            u_new, lam_new, improved = substep(u, psi_u, g_u, lam, H, y, c,
-                                               done, P)
-            for _ in range(n_substeps - 1):
-                psi_mid, g_mid = merit_grad(u_new, y, c, P)
-                u_new, lam_new, improved = substep(
-                    u_new, psi_mid, g_mid, lam_new, H, y, c, done, P)
-            psi_new, g_new = merit_grad(u_new, y, c, P)
-            r_norm = torch.amax(torch.abs(u_new - proj_box(u_new - g_new)),
-                                dim=-1)
-            done = done | (r_norm <= scfg.tol) | (
-                torch.logical_not(improved) & (lam >= 1e8))
-            u, psi_u, g_u, lam = u_new, psi_new, g_new, lam_new
+            with span("newton.iteration", u):
+                if iters is not None:
+                    iters += torch.logical_not(done | kept)
+                # One exact Hessian per iteration; the substeps share it, as
+                # in the fused loop.
+                H = merit_hess(u, y, c, P)
+                u_new, lam_new, improved = substep(u, psi_u, g_u, lam, H, y,
+                                                   c, done, P)
+                for _ in range(n_substeps - 1):
+                    psi_mid, g_mid = merit_grad(u_new, y, c, P)
+                    u_new, lam_new, improved = substep(
+                        u_new, psi_mid, g_mid, lam_new, H, y, c, done, P)
+                psi_new, g_new = merit_grad(u_new, y, c, P)
+                r_norm = torch.amax(
+                    torch.abs(u_new - proj_box(u_new - g_new)), dim=-1)
+                done = done | (r_norm <= scfg.tol) | (
+                    torch.logical_not(improved) & (lam >= 1e8))
+                u, psi_u, g_u, lam = u_new, psi_new, g_new, lam_new
         return u, scaled_residual(u, y, c, P)
 
     def solve(u0: torch.Tensor, P) -> NewtonResult:
@@ -426,8 +438,10 @@ def make_alm_newton_solver(
         outer_done = torch.zeros(B, dtype=torch.bool, device=device)
         r_final = torch.full((B,), float("inf"), dtype=dtype, device=device)
         y_solved, c_solved = y, c
+        iters = lane_counter("newton.iterations", u)
         for n_iters in n_stage_iters:
-            u_new, r_norm = inner_solve(u, y, c, P, n_iters)
+            u_new, r_norm = inner_solve(u, y, c, P, n_iters, iters,
+                                        outer_done)
             y_new, c_new, inf_new = alm_update(u_new, y, c, prev_inf, P)
             keep = outer_done
             y_solved = torch.where(keep[:, None], y_solved, y)

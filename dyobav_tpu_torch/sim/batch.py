@@ -41,6 +41,7 @@ from ..ops.engine import (any_lane, escalate_tail, escalation_ladder,
                           resolve_device)
 from ..ops.newton import NewtonResult, make_alm_newton_solver
 from ..ops.params import MpcParams, tuning_vector
+from ..utils.profiling import span
 
 HUMAN_SIZE = 0.2
 FAR_COORD = 1.0e6     # padding sentinel for inert obstacle/waypoint slots
@@ -829,18 +830,23 @@ def make_wta_predictor(net, ref_map_px, transform, n_hor: int,
         return torch.where((near[2] > 0)[..., None], snapped, points_px)
 
     def predict(hist_world):
-        B, _, H, _ = hist_world.shape
-        trajs = world_to_px(hist_world).transpose(1, 2)       # (B, H, 5, 2)
-        stack = traj_to_input_stack(trajs, ref_map, offsets,
-                                    obsv_len=obsv_len)  # (B, H, N, 7, h, w)
-        with torch.no_grad(), full_f32():
-            hypos = net(stack.reshape((-1,) + stack.shape[3:]))
-        hypos = snap(hypos.reshape(B, H, n_hor, -1, 2).to(dtype))
-        mu, std, alpha = cluster_gaussian_fit(
-            px_to_world(hypos), eps=1.0, enlarge=enlarge,
-            max_clusters=max_clusters)                     # (B, H, N, C, ...)
-        return (mu.transpose(1, 2).reshape(B, n_hor, -1, 2),
-                std.transpose(1, 2).reshape(B, n_hor, -1, 2),
-                alpha.transpose(1, 2).reshape(B, n_hor, -1))
+        with span("predict", hist_world):
+            B, _, H, _ = hist_world.shape
+            with span("predict.heatmap", hist_world):
+                trajs = world_to_px(hist_world).transpose(1, 2)  # (B,H,5,2)
+                stack = traj_to_input_stack(
+                    trajs, ref_map, offsets,
+                    obsv_len=obsv_len)                # (B, H, N, 7, h, w)
+            with span("predict.net", hist_world):
+                with torch.no_grad(), full_f32():
+                    hypos = net(stack.reshape((-1,) + stack.shape[3:]))
+                hypos = hypos.reshape(B, H, n_hor, -1, 2).to(dtype)
+            with span("predict.cluster", hist_world):
+                mu, std, alpha = cluster_gaussian_fit(
+                    px_to_world(snap(hypos)), eps=1.0, enlarge=enlarge,
+                    max_clusters=max_clusters)        # (B, H, N, C, ...)
+                return (mu.transpose(1, 2).reshape(B, n_hor, -1, 2),
+                        std.transpose(1, 2).reshape(B, n_hor, -1, 2),
+                        alpha.transpose(1, 2).reshape(B, n_hor, -1))
 
     return predict
