@@ -133,7 +133,11 @@ just after:
 Each kernel is timed back to back (`ms`: inputs that fit stay in the L2
 cache) and one call at a time after a write that evicts the L2 cache
 (`ms_cold`); `bound_share` is its bound over `ms_cold` and fails above
-1.05.  Each phase prints a line; the line before the last is the kernel
+1.05.  The stem kernel (`csrc/stem_expand_pool.cu`, the SWTA net's stem
+expanded over the offsets) is held bit for bit to its plain version at
+STEM_SHAPES, and each path with the neural predictor (`build_batch_sim[wta]`,
+`deploy[wta]`, `build_fleet_sim[wta]`) fails unless it launches it once a
+predictor call.  Each phase prints a line; the line before the last is the kernel
 table as JSON and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -172,7 +176,7 @@ SIM_REF_BATCH = 8   # scenarios of the sim's card-vs-CPU check
 SIM_REF_STEPS = 3   # control steps of it
 LANES_BATCH = 8192  # systems of the second kernel's entry-point call
 WTA_BATCH = 64      # scenarios of the neural sim: 64 x 20 offsets = 1280
-                    # images a CNN call (the stem's output alone is 7.9 GB)
+                    # images a CNN call (the stem's pooled output is 2.0 GB)
 WTA_STEPS = 3       # control steps of it
 WTA_REF_BATCH = 2   # scenarios of the neural sim's card-vs-CPU check
 WTA_REF_STEPS = 2   # control steps of it
@@ -230,6 +234,14 @@ SWEEP_ARGS = ["--n", "8", "--steps", "2"]   # sweep[devices]'s sweep runs
 SHARD_BATCH, SHARD_STEPS = 8, 3   # shard_map_batch over [cuda:0, cuda:0]
 HARNESS_DWA_MMP_STEPS = 10  # control steps of harness[dwa+mmp]
 CHILD_TIMEOUT_S = 600     # wait for the other processes after paths 1-4
+STEM_SHAPES = ((64, 20), (1, 20))   # (pedestrians, offsets) of the stem
+                          # kernel's rows: the predictor cell's call (the
+                          # neural sim's too) and one pedestrian's
+STEM_PLANE = (64, 147, 165)   # the stem's channels x rows x columns at the
+                              # map's 293 x 330 px
+
+# Stem kernel launches by path, this process's (`count_stem`).
+STEM_LAUNCHES = {}
 
 
 def card_line() -> str:
@@ -465,6 +477,102 @@ def check_kernel(name, source, replaces, kernel, plain, shapes, device,
             "bound_share": share, "library_ms": library_ms})
     entry.update(rows[0], other_shapes=rows[1:])
     return entry
+
+
+def stem_bound_ms(P: int, K: int, C: int, Ho: int, Wo: int,
+                  peaks) -> tuple[float, str]:
+    """Least time of the stem kernel at (P, K, C, Ho, Wo), the larger of
+    two: its bytes at the memory rate (s and m read once, the offsets,
+    scale and shift, the pooled output written once) and its operations
+    at the fp32 rate (o * m, + s, * scale, + shift and the activation's
+    product an input element and offset; 8 comparisons an output)."""
+    Hp, Wp = (Ho - 1) // 2 + 1, (Wo - 1) // 2 + 1
+    n_bytes = 4 * (P * C * Ho * Wo + C * Ho * Wo + K + 2 * C
+                   + P * K * C * Hp * Wp)
+    ops = 5 * P * K * C * Ho * Wo + 8 * P * K * C * Hp * Wp
+    t_bytes, t_ops = n_bytes / peaks[0], ops / peaks[1]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_stem_kernel(device, peaks):
+    """The stem kernel (`ops/stem.stem_expand_pool`) against its plain
+    version, bit for bit, at STEM_SHAPES on STEM_PLANE: random
+    convolutions, BatchNorm statistics and offsets 1..K; timed as
+    `check_kernel` times, with the PyTorch chain of the sum, `batch_norm`,
+    `leaky_relu` and `max_pool2d` as the yardstick (the port never calls
+    it).  Returns the kernel table entry."""
+    import torch
+    import torch.nn.functional as F
+
+    from dyobav_tpu_torch.ops import stem
+
+    C, Ho, Wo = STEM_PLANE
+    entry = {"name": "stem_expand_pool", "route": "cuda",
+             "source": "dyobav_tpu_torch/csrc/stem_expand_pool.cu",
+             "replaces": None, "launches": None}
+    flush = l2_flush_buffer(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for P, K in STEM_SHAPES:
+        s = torch.randn(P, C, Ho, Wo, generator=gen, device=device)
+        m = torch.randn(C, Ho, Wo, generator=gen, device=device)
+        mean = torch.randn(C, generator=gen, device=device)
+        var = torch.rand(C, generator=gen, device=device) + 0.5
+        gamma = torch.rand(C, generator=gen, device=device) + 0.5
+        beta = torch.randn(C, generator=gen, device=device)
+        scale = gamma / torch.sqrt(var + 1e-5)
+        shift = beta - mean * scale
+        offsets = torch.arange(1.0, K + 1, device=device)
+        args = (s, m, offsets, scale, shift)
+        got = stem.stem_expand_pool(*args)
+        want = stem.stem_expand_pool_plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"stem_expand_pool {(P, K)}: differs from the plain version "
+                f"by {float((got - want).abs().max())}")
+        del got, want
+
+        def library():
+            z = (s[:, None] + offsets[:, None, None, None] * m).reshape(
+                P * K, C, Ho, Wo)
+            y = F.batch_norm(z, mean, var, gamma, beta, False, 0.0, 1e-5)
+            return F.max_pool2d(F.leaky_relu(y, 0.1, inplace=True), 3, 2,
+                                padding=1)
+
+        ms = cuda_ms(lambda: stem.stem_expand_pool(*args), 20)
+        ms_cold = cold_ms(lambda: stem.stem_expand_pool(*args), 20, flush)
+        plain_ms = cuda_ms(lambda: stem.stem_expand_pool_plain(*args), 2)
+        library_ms = cuda_ms(library, 5)
+        bound, bound_by = stem_bound_ms(P, K, C, Ho, Wo, peaks)
+        share = bound_share(bound, ms_cold, f"stem_expand_pool {(P, K)}")
+        print(f"kernel stem_expand_pool {(P, K, C, Ho, Wo)}: equal to the "
+              f"plain version; ms={ms:.4f} ms_cold={ms_cold:.4f} "
+              f"plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
+              f"bound_ms={bound:.4f} ({bound_by}) bound_share={share:.4f}",
+              flush=True)
+        rows.append({"shape": [P, K, C, Ho, Wo], "max_abs_err": 0.0,
+                     "ms": ms, "ms_cold": ms_cold, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "bound_share": share, "library_ms": library_ms})
+        del s, m, args
+        torch.cuda.empty_cache()
+    entry.update(rows[0], other_shapes=rows[1:])
+    return entry
+
+
+def count_stem(name: str, calls: int, before: int) -> None:
+    """Records the stem kernel's launches on path `name` since `before`
+    in STEM_LAUNCHES; fails unless the predictor launched it once a
+    call."""
+    from dyobav_tpu_torch.ops import stem
+
+    n = stem.stem_expand_pool.launches - before
+    STEM_LAUNCHES[name] = n
+    if n != calls:
+        raise AssertionError(f"{name}: {n} stem kernel launches in {calls} "
+                             "predictor calls")
 
 
 def sim_kernel_shapes(lanes: int) -> list:
@@ -837,7 +945,7 @@ def drive_wta_sim_path(cfg, robot, scfg, base, net, device):
     WTA_BATCH scenarios.  Returns kernel 1's launches on it."""
     import torch
 
-    from dyobav_tpu_torch.ops import engine, spd
+    from dyobav_tpu_torch.ops import engine, spd, stem
     from dyobav_tpu_torch.sim.batch import BatchResult, build_batch_sim
     from dyobav_tpu_torch.sim.scenarios import random_scenarios
 
@@ -858,12 +966,14 @@ def drive_wta_sim_path(cfg, robot, scfg, base, net, device):
                           predictor=timed_predict)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    stem0 = stem.stem_expand_pool.launches
     t0 = time.perf_counter()
     res = run(batch, np.arange(B))
     torch.cuda.synchronize()
     sim_s = time.perf_counter() - t0
     launches, syncs = spd.spd_solve.launches, engine.any_lane.syncs
     ms = [s.elapsed_time(e) for s, e, _ in calls]
+    count_stem("build_batch_sim[wta]", len(ms), stem0)
     images = calls[0][2] * cfg.N_hor
     gflop = conv_net_flops(net, (7,) + tuple(base.ref_map.shape)) / 1e9
     steady = float(np.mean(ms[1:])) if len(ms) > 1 else ms[0]
@@ -882,6 +992,7 @@ def drive_wta_sim_path(cfg, robot, scfg, base, net, device):
         "escalation_overflow_steps_mean": float(
             r["escalation_overflow_steps"].mean()),
         "spd_launches": launches, "spd_launches_per_step": launches / T,
+        "stem_launches": STEM_LAUNCHES["build_batch_sim[wta]"],
         "host_syncs_per_step": syncs / T,
         "collided": int(r["collided"].sum()),
         "collided_static": int(r["collided_static"].sum()),
@@ -1226,6 +1337,7 @@ def deploy_paths(device) -> dict:
     import torch
 
     from dyobav_tpu_torch.models.wta_net import load_checkpoint
+    from dyobav_tpu_torch.ops import stem
     from dyobav_tpu_torch.sim.harness import MainBase
 
     deploy_reference_check(device)
@@ -1246,10 +1358,12 @@ def deploy_paths(device) -> dict:
         calls.append((start, end))
         return out
 
+    stem0 = stem.stem_expand_pool.launches
     launches["deploy[wta]"], walls = drive_deploy_path(
         device, "deploy[wta]", DEPLOY_WTA_TICKS, timed_predict)
     # One call in the cold start, one a tick.
     ms = [s.elapsed_time(e) for s, e in calls]
+    count_stem("deploy[wta]", len(ms), stem0)
     print(json.dumps({"phase": "deploy[wta] predictor",
                       "predictor_calls": len(ms),
                       "predictor_ms_per_call": ms,
@@ -1411,7 +1525,7 @@ def drive_fleet_path(name, base, B, T, device, predictor=None) -> int:
     import torch
 
     from dyobav_tpu_torch.configs import SolverConfiguration
-    from dyobav_tpu_torch.ops import engine, spd
+    from dyobav_tpu_torch.ops import engine, spd, stem
     from dyobav_tpu_torch.sim.batch import point_in_any_quad
     from dyobav_tpu_torch.sim.fleet import FleetResult, build_fleet_sim
     from dyobav_tpu_torch.sim.scenarios import random_fleet_scenarios
@@ -1433,12 +1547,15 @@ def drive_fleet_path(name, base, B, T, device, predictor=None) -> int:
                           multistart=True, device=device,
                           predictor=timed_predict if predictor else None)
     reset_counts()
+    stem0 = stem.stem_expand_pool.launches
     t0 = time.perf_counter()
     res = run(batch, np.arange(B))
     torch.cuda.synchronize()
     sim_s = time.perf_counter() - t0
     launches = spd.spd_solve.launches
     syncs = engine.any_lane.syncs + engine.to_host.syncs
+    if predictor:
+        count_stem(name, len(calls), stem0)
 
     r = {f: getattr(res, f).cpu().numpy() for f in FleetResult._fields}
     pos = r["final_states"][..., :2]                             # (B, R, 2)
@@ -1976,7 +2093,8 @@ def child_main(results, name: str, device: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        results.put((name, "ok", CHILD_PHASES[name](torch.device(device))))
+        spd_launches = CHILD_PHASES[name](torch.device(device))
+        results.put((name, "ok", (spd_launches, dict(STEM_LAUNCHES))))
     except BaseException:
         results.put((name, "error", traceback.format_exc()))
         raise
@@ -2083,7 +2201,7 @@ def main() -> int:
           flush=True)
     # Build the kernels from the checkout's sources, one nvcc each, all
     # started together.
-    names = ("spd_cholesky", "spd_lanes")
+    names = ("spd_cholesky", "spd_lanes", "stem_expand_pool")
     with ThreadPoolExecutor(len(names)) as pool:
         builds = list(pool.map(build.build, names))
     for name, res in zip(names, builds):
@@ -2120,6 +2238,7 @@ def main() -> int:
         lambda A, b: spd_lanes.batched_spd_solve(A, b, force_kernel=True),
         spd_lanes.batched_spd_solve_plain,
         [(LANES_BATCH,), (512,), (200,)], device, PEAKS)
+    entry3 = check_stem_kernel(device, PEAKS)
 
     # The harness's paths with the deployment node, PANOC's with the solver
     # modes and the fleet, and the training stack run in three more
@@ -2154,15 +2273,17 @@ def main() -> int:
     for child in children:
         if child.exitcode != 0:
             raise AssertionError(f"a child process exited {child.exitcode}")
-    launches.update(payloads["harness"])
-    launches.update(payloads["solvers"])
-    launches.update(payloads["train"])
+    for spd_launches, stem_launches in payloads.values():
+        launches.update(spd_launches)
+        STEM_LAUNCHES.update(stem_launches)
 
     entry1["launches"] = sum(launches.values())
     entry1["launches_by_path"] = launches
     entry2["launches"] = lanes_launches
     entry2["launches_by_path"] = {"batched_spd_solve": lanes_launches}
-    print(json.dumps({"kernels": [entry1, entry2]}), flush=True)
+    entry3["launches"] = sum(STEM_LAUNCHES.values())
+    entry3["launches_by_path"] = STEM_LAUNCHES
+    print(json.dumps({"kernels": [entry1, entry2, entry3]}), flush=True)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           file=sys.stderr)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ positions (sigma = 20 px), the grayscale map channel and a constant
 pred-offset channel (the reference builds it in numpy:
 `utils_np.np_gaudist_map`, `pre_load.traj_to_input`).  The inputs of all
 horizon offsets differ only in the offset channel, so the bumps and the map
-are rasterized once and broadcast over the offsets.  Layout is NCHW; where
+are rasterized once and broadcast over the offsets
+(`traj_to_input_stack`), or kept once for a net that takes the offsets
+apart (`traj_to_shared_stack`).  Layout is NCHW; where
 the JAX functions take one trajectory, these also take leading batch dims
 (the port writes `vmap` out).
 """
@@ -63,6 +65,28 @@ def traj_to_input_stack(traj: torch.Tensor, ref_map: torch.Tensor,
     out[..., :obsv_len, :, :] = heat[..., None, :, :, :]
     out[..., obsv_len, :, :] = ref_map
     out[..., obsv_len + 1, :, :] = offsets[:, None, None]
+    return out
+
+
+def traj_to_shared_stack(traj: torch.Tensor, ref_map: torch.Tensor,
+                         sigma: float = 20.0,
+                         obsv_len: int = 5) -> torch.Tensor:
+    """The channels that all horizon offsets of `traj_to_input_stack`
+    share, once: traj (..., obsv_len, 2) -> (..., obsv_len + 1, H, W), the
+    bumps and the map, the same values in the same order (the offset
+    channel is left out; `models.wta_net.ConvMultiHypoNet.forward_offsets`
+    takes the offsets apart)."""
+    traj = torch.as_tensor(traj, dtype=torch.float32)
+    if traj.shape[-2] != obsv_len:
+        raise ValueError(f"traj has {traj.shape[-2]} positions, expected "
+                         f"{obsv_len}")
+    ref_map = torch.as_tensor(ref_map, dtype=torch.float32,
+                              device=traj.device)
+    H, W = ref_map.shape
+    out = torch.empty(traj.shape[:-2] + (obsv_len + 1, H, W),
+                      dtype=torch.float32, device=traj.device)
+    out[..., :obsv_len, :, :] = gaussian_map(traj, H, W, sigma)
+    out[..., obsv_len, :, :] = ref_map
     return out
 
 

@@ -21,6 +21,13 @@ dense layers are the JAX package's XLA operations and stay `torch.nn`
 layers (cuDNN / cuBLAS on the card).  Activations after a BatchNorm and the
 residual add run in place; autograd takes them in train mode too.
 
+`ConvMultiHypoNet.forward_offsets` is the predictor's inference path for
+images that share all channels but the constant offset: the lite stem's
+convolution runs once on the shared channels and a hand-written kernel
+(`ops/stem.py`) expands it over the offsets through BatchNorm, LeakyReLU
+and the max pool; the stages after the stem (`ResNet34Lite.trunk`) are
+`forward`'s.
+
 In train mode BatchNorm follows Flax's `BatchNorm(momentum=0.9)`: it
 normalizes with the batch's own statistics and moves the running variance
 toward the batch's *biased* variance (torch's own rule takes the unbiased
@@ -157,12 +164,19 @@ class ResNet34Lite(nn.Module):
         self.n_stages = len(channels)
 
     def forward(self, x):
-        x = self.stem(x)
-        # -inf padding, as flax's max_pool pads.
-        x = F.max_pool2d(x, 3, 2, padding=1)
+        return self.trunk(self.stem_block(x))
+
+    def stem_block(self, x):
+        """The stem and its 3x3/s2 max pool, with -inf padding as flax's
+        max_pool pads."""
+        return F.max_pool2d(self.stem(x), 3, 2, padding=1)
+
+    def trunk(self, x):
+        """The stages after the stem block, then the 2x2/s2 average pool
+        (VALID)."""
         for stage in range(self.n_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
-        return F.avg_pool2d(x, 2, 2)                 # 2x2/s2, VALID
+        return F.avg_pool2d(x, 2, 2)
 
 
 class ResNet34(ResNet34Lite):
@@ -216,11 +230,81 @@ class ConvMultiHypoNet(nn.Module):
         self.dim_out, self.num_hypos = dim_out, num_hypos
 
     def forward(self, x):
-        feat = self.resnet34(x)
+        return self._head(self.resnet34(x))
+
+    def _head(self, feat):
         feat = feat.reshape(feat.shape[0], -1)       # NCHW flatten
         feat = F.leaky_relu(self.fc1(feat), LEAKY_POST)
         hypos = self.swarm(feat)
         return hypos.reshape(hypos.shape[0], self.num_hypos, self.dim_out)
+
+    def factored_stem(self):
+        """(conv, bn) of a stem that factors over the offset channel, else
+        None.  It factors where the stem is one bias-free convolution
+        followed by BatchNorm and LeakyReLU (the lite stem): the
+        convolution is then linear in the offset channel.  A deep stem
+        has a nonlinearity between its convolutions and does not."""
+        blocks = list(self.resnet34.stem.children())
+        if len(blocks) != 1:
+            return None
+        block = blocks[0]
+        if len(block) != 2 or not block.activate:
+            return None
+        conv, bn = block
+        if conv.bias is not None or not isinstance(bn, nn.BatchNorm2d):
+            return None
+        return conv, bn
+
+    def forward_offsets(self, shared, offsets):
+        """`forward` of the images that share all channels but the last,
+        a constant offset, in full float32 (`full_f32`).
+
+        shared (P, C - 1, H, W): each pedestrian's channels but the
+        offset's; offsets (K,).  Returns (P * K, num_hypos, dim_out) in
+        (pedestrian, offset) order, what `forward` gives on the (P, K, C,
+        H, W) stacks of `models.heatmap.traj_to_input_stack` reshaped to
+        (P * K, C, H, W), up to the order of the stem's float32 sums.
+
+        The stem convolution is linear and has no bias, so the convolution
+        of the image of offset o is conv(shared) + o * conv(ones): the
+        shared channels are convolved once per pedestrian, the offset
+        channel's weights over an all-ones image with the same zero
+        padding (a fixed map, not constant near the border), and
+        `ops.stem.stem_expand_pool` expands them over the offsets with
+        BatchNorm's eval affine, LeakyReLU and the max pool.  The span
+        `predict.stem` covers those three steps.  Eval mode and no grad
+        only: BatchNorm with batch statistics does not factor."""
+        from ..ops.stem import stem_expand_pool
+        from ..utils.profiling import span
+
+        if self.training or torch.is_grad_enabled():
+            raise RuntimeError("forward_offsets runs in eval mode under "
+                               "torch.no_grad() only")
+        parts = self.factored_stem()
+        if parts is None:
+            raise ValueError("forward_offsets: this net's stem does not "
+                             "factor over the offset channel")
+        conv, bn = parts
+        n = conv.in_channels - 1
+        if shared.dim() != 4 or shared.shape[1] != n:
+            raise ValueError(f"forward_offsets: shared {tuple(shared.shape)}"
+                             f", expected (P, {n}, H, W)")
+        offsets = torch.as_tensor(offsets, dtype=shared.dtype,
+                                  device=shared.device)
+        w = conv.weight
+        with full_f32():
+            with span("predict.stem", shared):
+                s = F.conv2d(shared, w[:, :n], None, conv.stride,
+                             conv.padding)
+                ones = torch.ones((1, 1) + tuple(shared.shape[2:]),
+                                  dtype=shared.dtype, device=shared.device)
+                m = F.conv2d(ones, w[:, n:], None, conv.stride,
+                             conv.padding)[0]
+                scale = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+                shift = bn.bias - bn.running_mean * scale
+                x = stem_expand_pool(s, m, offsets, scale, shift)
+            x = self.resnet34.trunk(x.reshape((-1,) + tuple(x.shape[2:])))
+            return self._head(x)
 
 
 def backbone_fc_input(height: int, width: int, channels: int = 128) -> int:

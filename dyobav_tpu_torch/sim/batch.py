@@ -774,8 +774,12 @@ def make_wta_predictor(net, ref_map_px, transform, n_hor: int,
     eps = 1 m -> (mu, sigma, alpha) slots.  The net runs in full float32
     (`models.wta_net.full_f32`), as the JAX package's default dtype asks;
     the CGF takes no matrix product of coordinates, so it does too.
-    Memory: the batch is B x H x n_hor images of (7, Hpx, Wpx); the stem's
-    output alone is 64 x 147 x 165 floats an image at 293 x 330 px.
+    Where the net's stem factors over the offset channel (the lite stem,
+    `ConvMultiHypoNet.factored_stem`), the stacks are built without it,
+    once per (lane, human), and `ConvMultiHypoNet.forward_offsets`
+    convolves them once and expands the stem over the n_hor offsets; a
+    deep stem takes the 7-channel stacks.  Memory: the stem's pooled
+    output is 64 x 74 x 83 floats an image at 293 x 330 px.
 
     Args:
         net: `models.wta_net.ConvMultiHypoNet` in eval mode on `device`.
@@ -790,11 +794,14 @@ def make_wta_predictor(net, ref_map_px, transform, n_hor: int,
         predict(hist (B, 5, H, 2)) -> (mu (B, N, H*C, 2), std (B, N, H*C,
         2), alpha (B, N, H*C)), the contract of `build_batch_sim`.
     """
-    from ..models.heatmap import traj_to_input_stack
+    from ..models.heatmap import traj_to_input_stack, traj_to_shared_stack
     from ..models.wta_net import full_f32
     from ..ops.cluster import cluster_gaussian_fit
 
     device = resolve_device(device)
+    # A lite stem takes the offsets apart (`forward_offsets`): the 20
+    # offsets' images share all channels but the offset's.
+    factored = net.factored_stem() is not None
     ref_map = torch.as_tensor(np.asarray(ref_map_px), dtype=dtype,
                               device=device)
     Hpx, Wpx = ref_map.shape
@@ -834,12 +841,20 @@ def make_wta_predictor(net, ref_map_px, transform, n_hor: int,
             B, _, H, _ = hist_world.shape
             with span("predict.heatmap", hist_world):
                 trajs = world_to_px(hist_world).transpose(1, 2)  # (B,H,5,2)
-                stack = traj_to_input_stack(
-                    trajs, ref_map, offsets,
-                    obsv_len=obsv_len)                # (B, H, N, 7, h, w)
+                if factored:
+                    stack = traj_to_shared_stack(
+                        trajs, ref_map, obsv_len=obsv_len)  # (B, H, 6, h, w)
+                else:
+                    stack = traj_to_input_stack(
+                        trajs, ref_map, offsets,
+                        obsv_len=obsv_len)            # (B, H, N, 7, h, w)
             with span("predict.net", hist_world):
                 with torch.no_grad(), full_f32():
-                    hypos = net(stack.reshape((-1,) + stack.shape[3:]))
+                    if factored:
+                        hypos = net.forward_offsets(
+                            stack.reshape((-1,) + stack.shape[2:]), offsets)
+                    else:
+                        hypos = net(stack.reshape((-1,) + stack.shape[3:]))
                 hypos = hypos.reshape(B, H, n_hor, -1, 2).to(dtype)
             with span("predict.cluster", hist_world):
                 mu, std, alpha = cluster_gaussian_fit(

@@ -4,8 +4,9 @@ The port's counterpart of `dyobav_tpu.utils.profiling`.  That module's
 `StepTimer` and `device_trace` are not ported: nothing calls them.
 
 A span (`span(name, like)`) marks one stage of the program: the
-predictor's heat maps, net and clustering, the escalated solve's warm
-stage and ladder stages, a Newton iteration, a training chunk.  It is on
+predictor's heat maps, net, factored stem and clustering, the escalated
+solve's warm stage and ladder stages, a Newton iteration, a training
+chunk.  It is on
 exactly while torch's profiler records (`active()`): `torch.profiler.
 profile`, `torch.autograd.profiler.emit_nvtx` and `emit_itt` all turn it
 on.  Off, a span reads that one flag and returns a shared no-op context.
@@ -14,9 +15,10 @@ the profiler's trace and under Nsight's NVTX ranges on the device's clock;
 it reads the host clock, records a pair of timing CUDA events on the
 current stream of the tensor `like`'s device when that is a CUDA device, and
 snapshots the port's counters (`ops/engine.any_lane.syncs`,
-`ops/engine.to_host.syncs`, `ops/spd.spd_solve.launches`).  On exit it
-adds its count, host seconds, event pair and counter deltas to a
-process-wide registry keyed by name.
+`ops/engine.to_host.syncs`, `ops/spd.spd_solve.launches`,
+`ops/stem.stem_expand_pool.launches`).  On exit it adds its count, host
+seconds, event pair and counter deltas to a process-wide registry keyed
+by name.
 
 A span's device time runs from its start event to its end event: the time
 the stage held the stream, idle left by the host's launches included.
@@ -42,7 +44,8 @@ import time
 import numpy as np
 import torch
 
-COUNTERS = ("any_lane.syncs", "to_host.syncs", "spd_solve.launches")
+COUNTERS = ("any_lane.syncs", "to_host.syncs", "spd_solve.launches",
+            "stem_expand_pool.launches")
 # Bins of a lane counter's histogram; values beyond the last bin land in it.
 LANE_BINS = 4096
 # Pending event pairs of a span name beyond which the finished ones fold.
@@ -87,8 +90,10 @@ def _stack() -> list:
 def _counters():
     from ..ops.engine import any_lane, to_host
     from ..ops.spd import spd_solve
+    from ..ops.stem import stem_expand_pool
 
-    return (any_lane.syncs, to_host.syncs, spd_solve.launches)
+    return (any_lane.syncs, to_host.syncs, spd_solve.launches,
+            stem_expand_pool.launches)
 
 
 class _Entry:

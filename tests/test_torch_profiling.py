@@ -13,7 +13,7 @@ from dyobav_tpu_torch import configs as tcfg
 from dyobav_tpu_torch.maps.transforms import ScaleOffsetReverseTransform
 from dyobav_tpu_torch.models.wta_net import (ConvMultiHypoNet,
                                              backbone_fc_input)
-from dyobav_tpu_torch.ops import engine, spd
+from dyobav_tpu_torch.ops import engine, spd, stem
 from dyobav_tpu_torch.ops.params import empty_params, pack, tuning_vector
 from dyobav_tpu_torch.predictors.mmp import ObstacleSnapper
 from dyobav_tpu_torch.sim.batch import make_wta_predictor
@@ -122,7 +122,8 @@ def test_off_enters_no_record_function_and_records_nothing(predict,
 def test_predictor_spans_nest_in_order_as_annotations(predict):
     _, prof = _profiled(lambda: predict(_hist()))
     s = profiling.summary()
-    assert set(s) == {"predict", *STAGES}
+    # The tiny net's lite stem factors: its span sits inside the net's.
+    assert set(s) == {"predict", "predict.stem", *STAGES}
     for name in s:
         assert s[name]["count"] == 1 and s[name]["device_s"] is None
         assert s[name]["host_s"] > 0
@@ -134,6 +135,9 @@ def test_predictor_spans_nest_in_order_as_annotations(predict):
     inner = [marks[n].time_range for n in STAGES]
     assert all(outer.start <= r.start and r.end <= outer.end for r in inner)
     assert all(a.end <= b.start for a, b in zip(inner, inner[1:]))
+    net, stem_span = marks["predict.net"].time_range, marks[
+        "predict.stem"].time_range
+    assert net.start <= stem_span.start and stem_span.end <= net.end
 
 
 def test_predictor_outputs_bit_identical_with_spans_on(predict):
@@ -208,23 +212,25 @@ def test_counter_deltas_follow_the_counters():
 
     def work():
         before = (engine.any_lane.syncs, engine.to_host.syncs,
-                  spd.spd_solve.launches)
+                  spd.spd_solve.launches, stem.stem_expand_pool.launches)
         with profiling.span("outer", t):
             engine.any_lane(mask)
             with profiling.span("inner", t):
                 engine.to_host(t)
                 engine.to_host(t)
+                # What a launch of the stem kernel adds (the CPU: none).
+                stem.stem_expand_pool.launches += 1
             # What a launch of the SPD kernel adds (the CPU launches none).
             spd.spd_solve.launches += 3
         return before
 
     before, _ = _profiled(work)
     after = (engine.any_lane.syncs, engine.to_host.syncs,
-             spd.spd_solve.launches)
+             spd.spd_solve.launches, stem.stem_expand_pool.launches)
     s = profiling.summary()
     assert [s["outer"][c] for c in profiling.COUNTERS] == [
-        b - a for a, b in zip(before, after)] == [1, 2, 3]
-    assert [s["inner"][c] for c in profiling.COUNTERS] == [0, 2, 0]
+        b - a for a, b in zip(before, after)] == [1, 2, 3, 1]
+    assert [s["inner"][c] for c in profiling.COUNTERS] == [0, 2, 0, 1]
 
 
 def test_summary_on_the_cpu_and_reset():

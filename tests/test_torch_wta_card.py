@@ -13,7 +13,10 @@ import pytest
 import torch
 
 from dyobav_tpu_torch.configs import MpcConfiguration
-from dyobav_tpu_torch.models.wta_net import load_checkpoint
+from dyobav_tpu_torch.models.heatmap import (traj_to_input_stack,
+                                             traj_to_shared_stack)
+from dyobav_tpu_torch.models.wta_net import full_f32, load_checkpoint
+from dyobav_tpu_torch.ops import stem
 from dyobav_tpu_torch.ops.cluster import cluster_gaussian_fit
 from dyobav_tpu_torch.predictors.mmp import MmpInterface, ObstacleSnapper
 from dyobav_tpu_torch.sim import batch as tb
@@ -113,3 +116,54 @@ def test_cgf_on_card_ignores_callers_tf32(cuda_device):
     torch.testing.assert_close(mu, ref[0], rtol=0, atol=1e-5)
     torch.testing.assert_close((std / 2) ** 2, (ref[1] / 2) ** 2, rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 20, 64, 147, 165), (1, 3, 64, 19, 21)],
+                         ids=["cell", "odd"])
+def test_stem_kernel_bit_equal_to_plain(cuda_device, shape):
+    """The stem kernel against its plain version on the card, at the
+    predictor cell's (pedestrians, offsets, channels, rows, columns) and at
+    an odd one: the same roundings in the same order, so equal values."""
+    P, K, C, Ho, Wo = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    s = torch.randn(P, C, Ho, Wo, generator=gen, device=cuda_device)
+    m = torch.randn(C, Ho, Wo, generator=gen, device=cuda_device)
+    scale = torch.rand(C, generator=gen, device=cuda_device) + 0.5
+    shift = torch.randn(C, generator=gen, device=cuda_device)
+    offsets = torch.arange(1.0, K + 1, device=cuda_device)
+    launches = stem.stem_expand_pool.launches
+    got = stem.stem_expand_pool(s, m, offsets, scale, shift)
+    torch.cuda.synchronize()
+    assert stem.stem_expand_pool.launches == launches + 1
+    want = stem.stem_expand_pool_plain(s, m, offsets, scale, shift)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError, match="float32"):
+        stem.stem_expand_pool(s.double(), m.double(), offsets.double(),
+                              scale.double(), shift.double())
+
+
+@pytest.mark.cuda
+def test_factored_net_matches_seven_channel_forward(cuda_device):
+    """The trained net on the card, TF32 off in both: `forward_offsets` on
+    the shared channels within 1e-3 px of `forward` on the 7-channel
+    stacks; and the predictor launches the stem kernel once a call."""
+    base = MainBase(seed=0)
+    net = load_checkpoint(PT, cuda_device)
+    traj = torch.tensor([[[160.0, 50.0 + 3 * i] for i in range(5)],
+                         [[3.0 + 2 * i, 4.0 + i] for i in range(5)]],
+                        device=cuda_device)
+    offsets = torch.arange(1.0, 21.0, device=cuda_device)
+    stack = traj_to_input_stack(traj, base.ref_map, offsets)
+    shared = traj_to_shared_stack(traj, base.ref_map)
+    with torch.no_grad(), full_f32():
+        want = net(stack.reshape((-1,) + stack.shape[2:])).cpu()
+        got = net.forward_offsets(shared, offsets).cpu()
+    assert got.shape == want.shape == (40, 20, 2)
+    assert float((got - want).abs().max()) <= 1e-3
+    pred = tb.make_wta_predictor(net, base.ref_map, base.ct2real, 20,
+                                 device=cuda_device)
+    launches = stem.stem_expand_pool.launches
+    pred(torch.from_numpy(_hist()).to(cuda_device))
+    assert stem.stem_expand_pool.launches == launches + 1
